@@ -1,0 +1,383 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
+with ``nvcc``, holds each against its plain PyTorch version on the card at
+the serving path's shapes, serves gpt-paper at full width through the paged
+engine (the kernels' launch counts are zeroed just before and read just
+after), checks the served logits against the dense forward, and times the
+kernels beside their bounds.  Any failed phase exits non-zero.  Without a
+CUDA device, or run from a directory that lacks the repository's ``src/``,
+it exits non-zero and prints no result.
+
+The last two lines of standard output are the kernels' JSON line and
+``{"ok": true, "device": {...}}``; the card's name and power limit, as
+``nvidia-smi`` reports them, come on the line before those.
+"""
+from __future__ import annotations
+
+import collections
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# Kernel against plain version on real rows: |got - want| <= atol + rtol|want|
+# elementwise.  fp32: the two sum in another order and use another exp
+# (measured max 6.6e-7).  bf16: both round an f32 result to 8 mantissa bits
+# and may land one unit in the last place apart, at most 2^-7 |want|; atol
+# covers the f32 differences near zero (measured max 9.8e-4, one unit in the
+# last place of a value near 0.2).
+TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-3, 2.0 ** -7)}
+SERVE = dict(max_seqs=8, max_len=2048, page_size=16, budget=0.5, max_new=32)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    check(out.returncode == 0, f"nvidia-smi: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def ragged_case(torch, *, q_lens, kv_lens, H, Kv, hd, ps, max_len, dtype, seed):
+    """Random q and a shuffled page pool holding each row's context."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S, q_max = len(q_lens), max(q_lens)
+    n_used = [-(-kl // ps) for kl in kv_lens]
+    P = sum(n_used) + 1
+    max_pages = -(-max_len // ps)
+    pages = torch.randn((P, ps, 2 * Kv, hd), generator=g, device="cuda").to(dtype)
+    order = torch.randperm(P, generator=g, device="cuda").tolist()
+    table = torch.zeros((S, max_pages), dtype=torch.int32)
+    for s, n in enumerate(n_used):
+        for j in range(n):
+            table[s, j] = order.pop()
+    q = torch.randn((S, q_max, H, hd), generator=g, device="cuda").to(dtype)
+    return (q, pages, table.cuda(), torch.tensor(q_lens, dtype=torch.int32, device="cuda"),
+            torch.tensor(kv_lens, dtype=torch.int32, device="cuda"))
+
+
+def real_rows_err(got, want, q_lens, atol, rtol):
+    """Max abs error on real rows, and the largest share of its limit."""
+    err = share = 0.0
+    for s, n in enumerate(q_lens):
+        if n:
+            w = want[s, :n].float()
+            d = (got[s, :n].float() - w).abs()
+            err = max(err, float(d.max()))
+            share = max(share, float((d / (atol + rtol * w.abs())).max()))
+    return err, share
+
+
+def work(q_lens, kv_lens, H, Kv, hd, max_pages, itemsize):
+    """Bytes the call must move and operations it must do on these inputs."""
+    live = [(ql, kl) for ql, kl in zip(q_lens, kv_lens) if ql]
+    S, q_max = len(q_lens), max(q_lens)
+    nbytes = (sum(ql for ql, _ in live) * H * hd * itemsize     # q: real rows only
+              + S * q_max * H * hd * itemsize   # out: padding rows are written as zeros
+              + sum(kl for _, kl in live) * 2 * Kv * hd * itemsize  # K and V once
+              + S * max_pages * 4 + 2 * S * 4)                   # table, lengths
+    # causal: query i of a row sees kv_len - q_len + i + 1 keys; a q.k and a
+    # p.v product per key, 2 operations each per head dim
+    keys = sum(ql * (kl - ql) + ql * (ql + 1) // 2 for ql, kl in live)
+    return nbytes, 4 * H * hd * keys
+
+
+def time_ms(torch, fn, flush, reps=25):
+    """Median of ``reps`` CUDA-event timings, L2 flushed before each run."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: {ROOT} holds no src/repro_torch; run it from the repository",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch
+    check(Path(repro_torch.__file__).resolve().is_relative_to(ROOT / "src"),
+          f"imported repro_torch from {repro_torch.__file__}, not from {ROOT / 'src'}")
+    from repro_torch.configs import get_config
+    from repro_torch.core import stats
+    from repro_torch.core.estimation import plan_prefill_chunk, prefill_block_step
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import model as M
+    from repro_torch.serving import PagedServeEngine, Request
+
+    # ---- 1. device --------------------------------------------------------
+    card = card_line()
+    print(f"[device] {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("[device] TF32 off for matmul and cuDNN: float32 products run in full float32")
+
+    # ---- 2. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    log = build.build("paged_attention")
+    print(f"[build] paged_attention.cu with nvcc in {time.perf_counter() - t0:.2f}s")
+    for line in log.splitlines():
+        if "registers" in line:
+            print(f"[build] paged_attention: {line.strip()}")
+
+    # ---- 3. kernel against its plain version at the serving shapes -------
+    cfg = get_config("gpt-paper")                         # bf16, full width
+    L_max, ps = SERVE["max_len"], SERVE["page_size"]
+    plan = plan_prefill_chunk(cfg, budget=SERVE["budget"], max_len=L_max)
+    chunk = plan.chunk
+    lens = np.linspace(256, 1024, 8).astype(int).tolist()     # the served prompts
+    decode = dict(q_lens=[1] * 8, kv_lens=[2048, 1, 700, 1500, 33, 1024, 1999, 256])
+    # a decode step of the serving run, halfway through its new tokens
+    serve_decode = dict(q_lens=[1] * 8, kv_lens=[n + SERVE["max_new"] // 2 for n in lens])
+    mixed = dict(q_lens=[1, chunk, 1, 1, 1, 1, 1, 0],
+                 kv_lens=[300, max(chunk, 1024), 700, 1500, 2048, 900, 1200, 0])
+    shapes = {
+        "gpt_decode": dict(decode, H=12, Kv=12, hd=64),
+        "gpt_serve_decode": dict(serve_decode, H=12, Kv=12, hd=64),
+        "gpt_mixed": dict(mixed, H=12, Kv=12, hd=64),
+        "gqa_decode": dict(decode, H=32, Kv=8, hd=128),
+        "gqa_mixed": dict(mixed, H=32, Kv=8, hd=128),
+    }
+    max_err = {}
+    cases = {}
+    for dt_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt_name)
+        for i, (name, shp) in enumerate(shapes.items()):
+            args = ragged_case(torch, **shp, ps=ps, max_len=L_max, dtype=dtype, seed=i)
+            got = PA.paged_attention_blocked(*args)
+            torch.cuda.synchronize()
+            want = PA.paged_attention_blocked_plain(*args)
+            torch.cuda.synchronize()
+            atol, rtol = TOL[dt_name]
+            err, share = real_rows_err(got, want, shp["q_lens"], atol, rtol)
+            pad = torch.arange(got.shape[1], device="cuda")[None, :] >= args[3][:, None]
+            check(bool((got[pad] == 0).all()), f"{name} {dt_name}: padding rows not zero")
+            check(bool(torch.isfinite(got).all()), f"{name} {dt_name}: non-finite output")
+            print(f"[kernel] paged_attention {name} {dt_name} q_max={got.shape[1]}"
+                  f" S={got.shape[0]} H={shp['H']} Kv={shp['Kv']} hd={shp['hd']}:"
+                  f" max_abs_err {err:.3e}, {share:.3f} of the limit {atol:g} + {rtol:g}|want|")
+            check(share <= 1.0, f"paged_attention {name} {dt_name} err {err}")
+            max_err[dt_name] = max(max_err.get(dt_name, 0.0), err)
+            cases[(name, dt_name)] = args
+
+    # ---- 4. serve gpt-paper at full width: the port's main path ----------
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    engine = PagedServeEngine(cfg, params, max_seqs=SERVE["max_seqs"], max_len=L_max,
+                              page_size=ps, prefill_chunk="auto",
+                              autochunk_budget=SERVE["budget"], device="cuda")
+    check(engine.prefill_chunk == chunk, "engine planned another chunk than phase 3")
+    engine.submit(Request(rid=-1, prompt=[1] * 16, max_new_tokens=2))   # warm-up
+    engine.run()
+    engine.finished.clear()
+    engine.sched_stats.update(dict.fromkeys(engine.sched_stats, 0))
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                    max_new_tokens=SERVE["max_new"]) for i, n in enumerate(lens)]
+    before = stats.snapshot()
+    torch.cuda.synchronize()
+    PA.paged_attention_blocked.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = PA.paged_attention_blocked.launches
+    d = stats.delta(before)
+    steps = engine.sched_stats["steps"]
+    toks = sum(len(r.generated) for r in reqs)
+    check(all(r.done and len(r.generated) == SERVE["max_new"] for r in reqs),
+          "not every request finished with max_new tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          "a generated token lies outside the vocabulary")
+    check(d["mixed_steps"] > 0, "no mixed prefill+decode step")
+    check(d["pages_allocated"] == d["pages_freed"] > 0,
+          f"pages allocated {d['pages_allocated']} != freed {d['pages_freed']}")
+    check(launches == cfg.n_layers * steps > 0,
+          f"paged_attention launched {launches} times in {steps} steps")
+    ttft = [r.ttft_s for r in reqs]
+    print(f"[serve] gpt-paper bf16 full width: {len(reqs)} requests (prompts"
+          f" {lens[0]}..{lens[-1]}), {toks} tokens in {wall:.3f}s = {toks / wall:.1f} tok/s,"
+          f" {steps} steps ({engine.sched_stats['mixed_steps']} mixed), TTFT mean"
+          f" {statistics.mean(ttft):.3f}s max {max(ttft):.3f}s")
+    print(f"[serve] planned prefill chunk {chunk} at budget {SERVE['budget']}: predicted"
+          f" one-block peak {plan.peak_bytes} B of budget {plan.budget_bytes} B"
+          f" (unchunked {plan.baseline_peak_bytes} B)")
+    print(f"[serve] paged_attention launches {launches} = {cfg.n_layers} layers x {steps}"
+          f" steps; pages allocated {d['pages_allocated']} freed {d['pages_freed']}")
+
+    # ---- 4b. where the serving window's device time goes (informational) --
+    # the same requests again under torch.profiler; its host overhead
+    # stretches this window's wall time, so shares are of the untraced wall
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    again = [Request(rid=100 + r.rid, prompt=r.prompt, max_new_tokens=SERVE["max_new"])
+             for r in reqs]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for r in again:
+            engine.submit(r)
+        engine.run()
+        torch.cuda.synchronize()
+    device_us = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            device_us[e.name] += e.time_range.elapsed_us()
+    busy = sum(device_us.values()) / 1e6
+    if busy == 0:
+        print("[trace] torch.profiler recorded no device time: the split of the"
+              " serving window is not measured")
+    else:
+        attn = sum(us for n, us in device_us.items() if "paged_attention_kernel" in n) / 1e6
+        print(f"[trace] serving window on the device: busy {busy:.4f}s of the untraced"
+              f" {wall:.4f}s wall (idle {1 - busy / wall:.1%}); paged_attention_kernel"
+              f" {attn:.4f}s = {attn / wall:.1%} of wall, {attn / busy:.1%} of busy; {card}")
+        for n, us in device_us.most_common(8):
+            print(f"[trace]   {us / 1e3:10.3f} ms  {n[:100]}")
+    del engine, params
+
+    # ---- 5. served logits against the dense forward, fp32 ----------------
+    cfg32 = cfg.with_(dtype="float32")
+    params32 = M.init_params(cfg32, torch.Generator(device="cuda").manual_seed(1),
+                             device="cuda")
+    engine = PagedServeEngine(cfg32, params32, max_seqs=2, max_len=1024, page_size=ps,
+                              prefill_chunk="auto", autochunk_budget=SERVE["budget"],
+                              device="cuda")
+    captured = []
+    run_ragged = engine.run_ragged
+    engine.run_ragged = lambda *a: captured.append(run_ragged(*a)) or captured[-1]
+    prompt = rng.integers(0, cfg.vocab_size, 600).tolist()
+    engine.submit(Request(rid=0, prompt=prompt, max_new_tokens=1))
+    engine.run()
+    served = captured[-1][0]
+    dense = M.forward(cfg32, params32, {"tokens": torch.tensor([prompt], device="cuda")})[0]
+    dense = dense[0, -1]
+    err = float((served - dense).abs().max())
+    check(served.shape == dense.shape == (cfg.vocab_padded,), "logit shapes differ")
+    check(bool(torch.isfinite(served[:cfg.vocab_size]).all()), "non-finite served logits")
+    print(f"[logits] fp32 prompt of 600 in {len(captured)} chunks of {engine.prefill_chunk}:"
+          f" served vs dense forward max_abs_err {err:.3e} (limit 1e-3)")
+    check(err <= 1e-3, f"served logits differ from the dense forward by {err}")
+    del engine, params32, captured, served, dense
+
+    # ---- 6. estimator on the card (informational) ------------------------
+    g = torch.Generator(device="cuda").manual_seed(2)
+    block = M.dense_block_params(cfg, g, device="cuda")
+    x = torch.randn((1, chunk, cfg.d_model), generator=g, device="cuda").to(cfg.torch_dtype)
+    kv = [torch.randn((1, L_max, cfg.n_kv_heads, cfg.hd), generator=g,
+                      device="cuda").to(cfg.torch_dtype) for _ in range(2)]
+    step = prefill_block_step(cfg, chunk, L_max)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        out = step(block, x, *kv)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    print(f"[estimate] one block step, chunk {chunk} against {L_max}: predicted peak"
+          f" {plan.peak_bytes} B, measured max_memory_allocated delta {measured} B"
+          f" (ratio {measured / plan.peak_bytes:.3f})")
+    del block, x, kv, out
+
+    # ---- 7. times at the serving shapes ----------------------------------
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    timed = {}
+    for name in ("gpt_decode", "gpt_serve_decode", "gpt_mixed"):
+        shp = shapes[name]
+        q, pages, table, q_lens, kv_lens = args = cases[(name, "bfloat16")]
+        nbytes, ops = work(shp["q_lens"], shp["kv_lens"], shp["H"], shp["Kv"], shp["hd"],
+                           table.shape[1], 2)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
+        # the library yardstick: SDPA on the gathered dense KV with the
+        # same ragged causal mask
+        S, q_max, H, hd = q.shape
+        Kv = shp["Kv"]
+        L_ctx = max(shp["kv_lens"])
+        kd, vd = PA.split_kv(pages[table.long()].reshape(S, -1, 2 * Kv, hd)[:, :L_ctx])
+        kd, vd = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+        qd = q.transpose(1, 2).contiguous()
+        qpos = (kv_lens - q_lens)[:, None] + torch.arange(q_max, device="cuda")[None]
+        kpos = torch.arange(L_ctx, device="cuda")
+        mask = ((kpos[None, None] <= qpos[:, :, None])
+                & (kpos[None, None] < kv_lens[:, None, None]))[:, None]
+        timed[name] = {
+            "ms": time_ms(torch, lambda: PA.paged_attention_blocked(*args), flush),
+            "plain_ms": time_ms(torch, lambda: PA.paged_attention_blocked_plain(*args), flush),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask, enable_gqa=True), flush),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "q_max": q_max, "bytes": nbytes, "operations": ops,
+        }
+        t = timed[name]
+        print(f"[time] paged_attention {name} bf16 (S={S} q_max={q_max} H={H} hd={hd}):"
+              f" kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']};"
+              f" {nbytes} B, {ops} ops), plain {t['plain_ms']:.4f} ms,"
+              f" SDPA {t['library_ms']:.4f} ms, {t['bound_ms'] / t['ms']:.1%} of bound;"
+              f" {card}")
+
+    # ---- 8. kernels lines and the result ---------------------------------
+    print("kernels: " + json.dumps([{"name": "paged_attention", "launches": launches,
+                                     "max_err_bf16": max_err["bfloat16"],
+                                     "max_err_fp32": max_err["float32"]}]))
+    # the top-level times are the serving run's decode step, the shape it
+    # launches most; "shapes" carries the longer decode and the mixed step
+    entry = {
+        "name": "paged_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:204",
+        "launches": launches,
+        "max_abs_err": max_err["bfloat16"],
+        **{k: timed["gpt_serve_decode"][k] for k in
+           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "max_err_bf16": max_err["bfloat16"],
+        "max_err_fp32": max_err["float32"],
+        "shapes": timed,
+    }
+    print(card)
+    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

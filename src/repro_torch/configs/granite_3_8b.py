@@ -1,0 +1,19 @@
+"""granite-3-8b [dense]: GQA [hf:ibm-granite/granite-3.0-2b-base].
+
+40L d_model=4096 32H (GQA kv=8) d_ff=12800 vocab=49155.
+"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-3-8b",
+    family="dense",
+    n_layers=40,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=12800,
+    vocab_size=49155,
+    act="swiglu",
+    tie_embeddings=True,
+    sliding_window=8192,
+)

@@ -1,0 +1,19 @@
+"""minitron-8b [dense]: pruned nemotron [arXiv:2407.14679].
+
+32L d_model=4096 32H (GQA kv=8) d_ff=16384 vocab=256000.
+"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="minitron-8b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=16384,
+    vocab_size=256000,
+    act="swiglu",
+    # long_500k carve-out: sliding-window variant (see DESIGN.md §6)
+    sliding_window=8192,
+)

@@ -1,0 +1,44 @@
+"""Pipeline counters: observable evidence of which passes and events ran.
+
+Plain ``bump``/``snapshot``/``delta``/``reset`` over one process-wide dict,
+with the JAX package's names.  The metrics registry and its exporters come
+with the observability slice (ROADMAP queue A item 9).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+# Pre-registered so snapshots always carry the full key set.
+COUNTERS = (
+    "trace_calls",          # graph captures (core.graph.trace)
+    "estimate_calls",       # estimation passes (core.estimation.estimate_memory)
+    # paged serving: physical pages leaving / re-entering the free list,
+    # planner-sized prompt chunks run, steps that carried prefill and decode
+    # rows in one ragged batch, and admissions refused for lack of pages
+    "pages_allocated",
+    "pages_freed",
+    "mixed_steps",
+    "prefill_chunks",
+    "admission_refusals",
+)
+
+_COUNTS: Dict[str, int] = {name: 0 for name in COUNTERS}
+
+
+def bump(name: str, by: int = 1) -> None:
+    _COUNTS[name] = _COUNTS.get(name, 0) + by
+
+
+def snapshot() -> Dict[str, int]:
+    """Copy of all counters (safe to diff against a later snapshot)."""
+    return dict(_COUNTS)
+
+
+def reset() -> None:
+    for name in _COUNTS:
+        _COUNTS[name] = 0
+
+
+def delta(before: Dict[str, int]) -> Dict[str, int]:
+    """Counter increments since ``before`` (a prior :func:`snapshot`)."""
+    return {k: v - before.get(k, 0) for k, v in _COUNTS.items()}

@@ -1,0 +1,176 @@
+"""Port paged attention against the JAX Pallas kernel and its oracle.
+
+The same numpy inputs go to ``repro.kernels.paged_attention_blocked`` (run
+in interpret mode, as the JAX package's own tests run it on the CPU) and to
+the port's ``paged_attention_blocked`` on CPU tensors, which takes the plain
+PyTorch version.  Outputs agree on real query rows to atol 1e-5 (float32;
+the two frameworks sum in different orders).  The JAX kernel leaves padding
+rows as garbage; the port writes zeros there.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.paged_attention import paged_attention_blocked as jax_paged
+from repro.kernels.ref import paged_attention_ref as jax_ref
+from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels.ref import paged_attention_ref
+
+torch.set_num_threads(2)
+ATOL = 1e-5
+
+
+def _case(q_lens, kv_lens, *, H, Kv, hd, ps, seed=0, spare_pages=2):
+    """A ragged batch in the paged layout.
+
+    Pages are handed out in shuffled order, ``spare_pages`` pages belong to
+    no sequence and hold large values, and page-table entries past a row's
+    page count hold out-of-range ids (both sides clamp and never use them).
+    """
+    rng = np.random.default_rng(seed)
+    S = len(q_lens)
+    q_max = max(max(q_lens), 1)
+    n_used = [-(-kl // ps) for kl in kv_lens]
+    P = sum(n_used) + spare_pages
+    max_pages = max(max(n_used), 1) + 1
+    pages = np.full((P, ps, 2 * Kv, hd), 1e4, np.float32)
+    table = rng.integers(P, 4 * P, (S, max_pages)).astype(np.int32)
+    order = rng.permutation(P).tolist()
+    for s, n in enumerate(n_used):
+        for j in range(n):
+            pid = order.pop()
+            table[s, j] = pid
+            pages[pid] = rng.standard_normal((ps, 2 * Kv, hd))
+    q = rng.standard_normal((S, q_max, H, hd)).astype(np.float32)
+    return (q, pages, table, np.asarray(q_lens, np.int32),
+            np.asarray(kv_lens, np.int32))
+
+
+CASES = {
+    # name: (q_lens, kv_lens, H, Kv, hd, page_size)
+    "decode_rows": ([1, 1, 1], [9, 17, 4], 4, 4, 32, 8),
+    "prefill_rows": ([8, 16], [8, 16], 4, 4, 64, 8),
+    "kv_len_off_page": ([5, 11, 3], [13, 11, 30], 4, 4, 32, 8),
+    "mixed_with_padding_rows": ([8, 1, 0, 5, 1], [24, 13, 0, 5, 1], 4, 4, 64, 4),
+    "gqa_mixed": ([6, 1, 3, 0], [20, 7, 3, 0], 4, 2, 32, 8),
+    "gqa_hd64_page16": ([1, 12, 1], [40, 12, 33], 4, 2, 64, 16),
+}
+
+
+def _real_rows(out, q_lens):
+    return np.concatenate([np.asarray(out[s, :ql]) for s, ql in enumerate(q_lens)], 0)
+
+
+def _port(q, pages, table, q_lens, kv_lens):
+    return PA.paged_attention_blocked(
+        torch.tensor(q), torch.tensor(pages), torch.tensor(table),
+        torch.tensor(q_lens), torch.tensor(kv_lens))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_matches_jax_kernel(name):
+    q_lens, kv_lens, H, Kv, hd, ps = CASES[name]
+    q, pages, table, ql, kl = _case(q_lens, kv_lens, H=H, Kv=Kv, hd=hd, ps=ps)
+    before = PA.paged_attention_blocked.launches
+    ours = _port(q, pages, table, ql, kl).numpy()
+    assert PA.paged_attention_blocked.launches == before  # CPU: plain version
+    theirs = jax_paged(jnp.asarray(q), jnp.asarray(pages), jnp.asarray(table),
+                       jnp.asarray(ql), jnp.asarray(kl), interpret=True)
+    assert ours.shape == q.shape and ours.dtype == np.float32
+    np.testing.assert_allclose(_real_rows(ours, q_lens), _real_rows(theirs, q_lens),
+                               atol=ATOL, rtol=0)
+    # padding rows (i >= q_len) are zeros, not garbage
+    pad = np.arange(q.shape[1])[None, :] >= ql[:, None]
+    assert (ours[pad] == 0).all()
+
+
+def _flat_case(name, seed=1):
+    q_lens, kv_lens, H, Kv, hd, ps = CASES[name]
+    q, pages, table, ql, kl = _case(q_lens, kv_lens, H=H, Kv=Kv, hd=hd, ps=ps, seed=seed)
+    table = np.clip(table, 0, pages.shape[0] - 1)
+    cu_q = np.cumsum([0] + list(q_lens)).astype(np.int32)
+    cu_kv = np.cumsum([0] + list(kv_lens)).astype(np.int32)
+    # the oracles' flat ragged layout; rows with q_len 0 carry nothing
+    flat = _real_rows(q, q_lens)
+    return (q, pages, table, ql, kl), (flat, pages, table, cu_q, cu_kv)
+
+
+def test_oracle_matches_jax_oracle():
+    # The JAX oracle compiles every op anew for each shape (seconds per
+    # case), so it is held against the port on the one case that has every
+    # row kind: decode, prefill, q_len 0, kv_len off the page edge, GQA.
+    _, flat_args = _flat_case("gqa_mixed")
+    ours = paged_attention_ref(*[torch.tensor(a) for a in flat_args]).numpy()
+    theirs = jax_ref(*[jnp.asarray(a) for a in flat_args])
+    np.testing.assert_allclose(ours, np.asarray(theirs), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_oracle_matches_blocked(name):
+    blocked_args, flat_args = _flat_case(name)
+    ours = paged_attention_ref(*[torch.tensor(a) for a in flat_args]).numpy()
+    blocked = _real_rows(_port(*blocked_args).numpy(), CASES[name][0])
+    np.testing.assert_allclose(blocked, ours, atol=ATOL, rtol=0)
+
+
+def test_bfloat16_plain_version_rounds_like_its_inputs():
+    q_lens, kv_lens, H, Kv, hd, ps = CASES["gqa_mixed"]
+    q, pages, table, ql, kl = _case(q_lens, kv_lens, H=H, Kv=Kv, hd=hd, ps=ps, seed=2)
+    qb, pb = torch.tensor(q).bfloat16(), torch.tensor(pages).bfloat16()
+    out = PA.paged_attention_blocked(qb, pb, torch.tensor(table), torch.tensor(ql),
+                                     torch.tensor(kl))
+    assert out.dtype == torch.bfloat16
+    ref = _port(qb.float().numpy(), pb.float().numpy(), table, ql, kl)
+    # one rounding of the f32 result to 8 mantissa bits: half a unit in the
+    # last place, at most 2^-8 |out|
+    torch.testing.assert_close(out.float(), ref, atol=1e-6, rtol=2.0 ** -8)
+
+
+def test_interleave_split_roundtrip_matches_jax():
+    from repro.kernels.paged_attention import interleave_kv as jax_interleave
+
+    rng = np.random.default_rng(3)
+    k = rng.standard_normal((5, 3, 4)).astype(np.float32)
+    v = rng.standard_normal((5, 3, 4)).astype(np.float32)
+    fused = PA.interleave_kv(torch.tensor(k), torch.tensor(v))
+    assert fused.shape == (5, 6, 4)
+    np.testing.assert_array_equal(fused.numpy(),
+                                  np.asarray(jax_interleave(jnp.asarray(k), jnp.asarray(v))))
+    k2, v2 = PA.split_kv(fused)
+    np.testing.assert_array_equal(k2.numpy(), k)
+    np.testing.assert_array_equal(v2.numpy(), v)
+
+
+def test_wrapper_takes_the_plain_version_only_on_cpu():
+    q, pages, table, ql, kl = _case([2], [5], H=2, Kv=1, hd=32, ps=4)
+    args = [torch.tensor(a) for a in (q, pages, table, ql, kl)]
+    assert PA.paged_attention_blocked.launches == 0
+    # pages_per_step is a TPU DMA knob: accepted and ignored
+    a = PA.paged_attention_blocked(*args, pages_per_step=4)
+    torch.testing.assert_close(a, PA.paged_attention_blocked_plain(*args), rtol=0, atol=0)
+    assert PA.paged_attention_blocked.launches == 0
+    with pytest.raises(ValueError, match="no kernel for device"):
+        PA.paged_attention_blocked(*[t.to("meta") for t in args])
+
+
+
+BAD_ARGS = {
+    "float64": lambda q, p, t, ql, kl: (q.double(), p.double(), t, ql, kl),
+    "mixed_dtypes": lambda q, p, t, ql, kl: (q.bfloat16(), p, t, ql, kl),
+    "head_dim_16": lambda q, p, t, ql, kl: (q[..., :16].contiguous(),
+                                            p[..., :16].contiguous(), t, ql, kl),
+    "heads_not_multiple_of_kv": lambda q, p, t, ql, kl: (q[:, :, :3].contiguous(), p, t,
+                                                         ql, kl),
+    "table_rows": lambda q, p, t, ql, kl: (q, p, t[:1], ql, kl),
+    "lengths": lambda q, p, t, ql, kl: (q, p, t, ql[:1], kl),
+    "non_contiguous_q": lambda q, p, t, ql, kl: (q.transpose(0, 1).contiguous()
+                                                 .transpose(0, 1), p, t, ql, kl),
+}
+
+
+@pytest.mark.parametrize("what", sorted(BAD_ARGS))
+def test_wrapper_rejects_what_the_kernel_does_not_take(what):
+    args = [torch.tensor(a) for a in _case([2, 1], [5, 3], H=4, Kv=2, hd=32, ps=4)]
+    with pytest.raises((TypeError, ValueError)):
+        PA.paged_attention_blocked(*BAD_ARGS[what](*args))
