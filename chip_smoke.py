@@ -4,13 +4,24 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
-with ``nvcc``, holds each against its plain PyTorch version on the card at
-the serving path's shapes, serves gpt-paper at full width through the paged
-engine (the kernels' launch counts are zeroed just before and read just
-after), checks the served logits against the dense forward, and times the
-kernels beside their bounds.  Any failed phase exits non-zero.  Without a
-CUDA device, or run from a directory that lacks the repository's ``src/``,
-it exits non-zero and prints no result.
+with ``nvcc`` (one compiler per source, in parallel) and drives the port's
+two paths at gpt-paper's full width:
+
+* serving: the paged engine, its kernel held against its plain version at
+  the serving shapes, the served logits against the dense forward;
+* the AutoChunk compiler: the 12-layer bf16 forward of 8192 tokens compiled
+  at a 0.2 activation budget, once with the computed-mask attention kernel
+  and once with ``mask_mode="bool"`` (the bool-mask kernel); predicted and
+  measured activation peaks and times of the chunked and unchunked
+  forwards, and chunked against unchunked logits in float32.
+  Both attention kernels are then held against their plain versions at the
+  compiled chunk shape (plus a window and a GQA case).
+
+Each path runs with the kernels' launch counts zeroed just before and read
+just after.  Every kernel is timed beside its bound, its plain version and
+the one PyTorch call that computes the same function.  Any failed phase
+exits non-zero.  Without a CUDA device, or run from a directory that lacks
+the repository's ``src/``, it exits non-zero and prints no result.
 
 The last two lines of standard output are the kernels' JSON line and
 ``{"ok": true, "device": {...}}``; the card's name and power limit, as
@@ -19,6 +30,7 @@ The last two lines of standard output are the kernels' JSON line and
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import json
 import statistics
 import subprocess
@@ -118,6 +130,258 @@ def time_ms(torch, fn, flush, reps=25):
     return statistics.median(times)
 
 
+# ---------------------------------------------------------------------------
+# The compiler path: autochunk on gpt-paper with the chunked-attention kernels
+# ---------------------------------------------------------------------------
+
+COMPILE = dict(seq_len=8192, budget=0.2,
+               # 12 attention stages plus one for the unembed's f32 logits:
+               # the default of 12 stages stops one short at this length
+               max_stages=16)
+
+
+def band_pairs(Sq, Skv, q_offset, causal, window):
+    """(query, key) pairs a computed-mask row set really attends."""
+    pairs = 0
+    for a in range(Sq):
+        qpos = q_offset + a
+        hi = min(qpos, Skv - 1) if causal else Skv - 1
+        lo = max(0, qpos - window + 1) if window else 0
+        pairs += max(0, hi - lo + 1)
+    return pairs
+
+
+def attention_case(torch, *, N, group, Sq, Skv, hd, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((N * group, Sq, hd), generator=g, device="cuda").to(dtype)
+    k = torch.randn((N, Skv, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((N, Skv, hd), generator=g, device="cuda").to(dtype)
+    return q, k, v
+
+
+def check_attention_kernels(torch, CA, chunk, ext):
+    """Both chunked-attention kernels against their plain versions on the
+    card, at the compiled forward's chunk and gpt-paper's heads, plus a
+    window case and a GQA case.  Returns max errors per (kernel, dtype)."""
+    offsets = {"first": 0, "mid": (ext - chunk) // 2, "last": ext - chunk}
+    cases = [dict(name=f"gpt_{k}", N=12, group=1, hd=64, off=o, window=None)
+             for k, o in offsets.items()]
+    cases += [dict(name="gpt_window", N=12, group=1, hd=64, off=offsets["mid"], window=1024),
+              dict(name="gqa_last", N=8, group=4, hd=128, off=offsets["last"], window=None)]
+    errs = {}
+    for dt_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt_name)
+        atol, rtol = TOL[dt_name]
+        for i, c in enumerate(cases):
+            q, k, v = attention_case(torch, N=c["N"], group=c["group"], Sq=chunk, Skv=ext,
+                                     hd=c["hd"], dtype=dtype, seed=100 + i)
+            scale = c["hd"] ** -0.5
+            qpos = c["off"] + torch.arange(chunk, device="cuda")[:, None]
+            kpos = torch.arange(ext, device="cuda")[None, :]
+            band = kpos <= qpos
+            if c["window"]:
+                band = band & (qpos - kpos < c["window"])
+            # the masked kernel gets the same band as a bool mask, and for
+            # gpt heads also a random per-head mask with an empty row
+            masks = [("band", band[None])]
+            if c["group"] == 1 and c["name"] == "gpt_mid":
+                m = torch.rand((c["N"], chunk, ext), device="cuda") < 0.5
+                m[:, 7] = False
+                masks.append(("random", m))
+            runs = [("computed_attention", c["name"],
+                     lambda: CA.computed_attention(q, k, v, c["off"], scale=scale,
+                                                   window=c["window"], group=c["group"]),
+                     lambda: CA.computed_attention_plain(q, k, v, c["off"], scale=scale,
+                                                         window=c["window"],
+                                                         group=c["group"]))]
+            for mname, m in masks:
+                runs.append(("masked_attention", f"{c['name']}_{mname}",
+                             lambda m=m: CA.masked_attention(q, k, v, m, scale=scale,
+                                                             group=c["group"]),
+                             lambda m=m: CA.masked_attention_plain(q, k, v, m, scale=scale,
+                                                                   group=c["group"])))
+            for kname, label, kernel, plain in runs:
+                got = kernel()
+                torch.cuda.synchronize()
+                want = plain()
+                torch.cuda.synchronize()
+                d = (got.float() - want.float()).abs()
+                err = float(d.max())
+                share = float((d / (atol + rtol * want.float().abs())).max())
+                check(bool(torch.isfinite(got).all()), f"{kname} {label} {dt_name}: non-finite")
+                print(f"[kernel] {kname} {label} {dt_name} Sq={chunk} Skv={ext}"
+                      f" H={c['N'] * c['group']} Kv={c['N']} hd={c['hd']} q_offset={c['off']}:"
+                      f" max_abs_err {err:.3e}, {share:.3f} of the limit {atol:g} + {rtol:g}|want|")
+                check(share <= 1.0, f"{kname} {label} {dt_name} err {err}")
+                errs[(kname, dt_name)] = max(errs.get((kname, dt_name), 0.0), err)
+                del got, want
+    return errs
+
+
+def compile_forward(torch, cfg, model, batch, *, mask_mode):
+    """Trace, search and compile the forward; returns (compiled, planned,
+    host seconds of each stage)."""
+    from repro_torch.core import ChunkConfig, autochunk
+    from repro_torch.models import model as M
+
+    cf = autochunk(M.logits_fn(model), ChunkConfig(
+        budget_ratio=COMPILE["budget"], max_stages=COMPILE["max_stages"],
+        mask_mode=mask_mode))
+    params = dict(model.named_parameters())
+    t0 = time.perf_counter()
+    traced = cf.trace(params, batch)
+    t1 = time.perf_counter()
+    planned = traced.search()
+    t2 = time.perf_counter()
+    compiled = planned.compile()
+    t3 = time.perf_counter()
+    return compiled, planned, (t1 - t0, t2 - t1, t3 - t2)
+
+
+def dispatched_loops(planned):
+    from repro_torch.core.lowering import is_chunk_loop
+
+    return [n for n in planned.graph.nodes if is_chunk_loop(n) and n.params["dispatches"]]
+
+
+def measure_forward(torch, fn, args):
+    """(output, activation peak bytes, CUDA-event ms) of one call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn(*args)
+    b.record()
+    b.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return out, peak, a.elapsed_time(b)
+
+
+def run_compiled_forward(torch, CA, stats, M, cfg, card, *, mask_mode):
+    """The port's compiler path at full width: compile, drive it with the
+    kernel counts zeroed just before and read just after, check it."""
+    import numpy as np
+
+    kname = "computed_attention" if mask_mode == "auto" else "masked_attention"
+    kernel = getattr(CA, kname)
+    S = COMPILE["seq_len"]
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (1, S)), device="cuda")}
+    before = stats.snapshot()
+    compiled, planned, (t_trace, t_search, t_compile) = compile_forward(
+        torch, cfg, model, batch, mask_mode=mask_mode)
+    d = stats.delta(before)
+    r = compiled.result
+    loops = dispatched_loops(planned)
+    expected = sum(n.params["n_iters"] for n in loops)
+    chunks = sorted({n.params["c"] for n in loops})
+    print(f"[compile] gpt-paper L={cfg.n_layers} d={cfg.d_model} {cfg.dtype} S={S}"
+          f" budget {COMPILE['budget']} mask_mode={mask_mode}: host seconds trace"
+          f" {t_trace:.2f}, search {t_search:.2f}, compile {t_compile:.2f};"
+          f" {len(r.plan)} stages; predicted peak {r.baseline_peak} B ->"
+          f" {r.final_peak} B (budget {r.budget_bytes} B,"
+          f" {r.reduction:.1%} reduction); dispatch hits {d['kernel_dispatch_hits']}"
+          f" (computed mask {d['kernel_dispatch_computed_mask']}), misses"
+          f" {d['kernel_dispatch_misses']}; attention chunks {chunks}")
+    for line in r.report().splitlines()[6:]:
+        print(f"[compile] {line.strip()}")
+    check(d["kernel_dispatch_hits"] == cfg.n_layers,
+          f"{d['kernel_dispatch_hits']} dispatch hits, want {cfg.n_layers}")
+    if mask_mode == "auto":
+        check(d["kernel_dispatch_computed_mask"] == cfg.n_layers, "not every mask is a band")
+    fn = M.logits_fn(model)
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        fn(params, batch)                                  # warm-ups
+        compiled(params, batch)
+        y0, peak0, ms0 = measure_forward(torch, fn, (params, batch))
+        del y0
+        CA.computed_attention.launches = CA.masked_attention.launches = 0
+        y1, peak1, ms1 = measure_forward(torch, compiled, (params, batch))
+        launches = kernel.launches
+    check(launches == expected, f"{kname} launched {launches} times, want {expected}")
+    check(launches == cfg.n_layers * (expected // cfg.n_layers), "uneven chunk counts")
+    check(bool(torch.isfinite(y1[..., :cfg.vocab_size]).all()), "non-finite chunked logits")
+    print(f"[forward] {mask_mode}: activation peak unchunked {peak0} B (predicted"
+          f" {r.baseline_peak} B), chunked {peak1} B (predicted {r.final_peak} B,"
+          f" budget {r.budget_bytes} B): measured reduction {1 - peak1 / peak0:.1%};"
+          f" time unchunked {ms0:.2f} ms, chunked {ms1:.2f} ms; {kname} launches"
+          f" {launches} = {cfg.n_layers} layers x {expected // cfg.n_layers} chunks; {card}")
+    out = dict(launches=launches, chunk=chunks[0], peak0=peak0, peak1=peak1, ms0=ms0, ms1=ms1,
+               pred0=r.baseline_peak, pred1=r.final_peak)
+    del y1, compiled, planned, model
+    return out
+
+
+def check_forward_fp32(torch, M, cfg, *, mask_mode):
+    """Chunked against unchunked logits in float32, at the full length: at
+    2048 tokens the unembed's 413 MB of f32 logits outweigh each layer's
+    attention (12 S^2 f32 grows past 50432 S at S ~ 4200), so the search
+    chunks no attention site there and the kernels would go unchecked."""
+    import numpy as np
+
+    cfg32 = cfg.with_(dtype="float32")
+    S = COMPILE["seq_len"]
+    model = M.init_params(cfg32, torch.Generator(device="cuda").manual_seed(4), device="cuda")
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (1, S)), device="cuda")}
+    compiled, planned, _ = compile_forward(torch, cfg32, model, batch, mask_mode=mask_mode)
+    n_dispatched = len(dispatched_loops(planned))
+    check(n_dispatched == cfg.n_layers, f"fp32: {n_dispatched} attention sites dispatched")
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        y1 = compiled(params, batch)
+        y0 = M.logits_fn(model)(params, batch)
+    err = float((y1[..., :cfg.vocab_size] - y0[..., :cfg.vocab_size]).abs().max())
+    print(f"[forward] {mask_mode}: fp32 S={S}, {len(compiled.result.plan)} stages,"
+          f" {n_dispatched} attention sites dispatched: chunked vs unchunked logits"
+          f" max_abs_err {err:.3e} (limit 1e-3)")
+    check(err <= 1e-3, f"fp32 chunked logits differ by {err}")
+    return err
+
+
+def time_attention_kernels(torch, F, CA, chunk, ext, flush, card):
+    """Each kernel at the compiled forward's chunk shape (gpt-paper heads,
+    the last chunk, which sees every key) beside its bound, its plain
+    version and SDPA with the same mask."""
+    N, hd = 12, 64
+    off = ext - chunk
+    q, k, v = attention_case(torch, N=N, group=1, Sq=chunk, Skv=ext, hd=hd,
+                             dtype=torch.bfloat16, seed=7)
+    scale = hd ** -0.5
+    qpos = off + torch.arange(chunk, device="cuda")[:, None]
+    mask = torch.arange(ext, device="cuda")[None, :] <= qpos
+    q4, k4, v4 = q[None], k[None], v[None]
+    io = 2 * (2 * N * chunk * hd + 2 * N * ext * hd)      # q, out, K, V in bf16
+    timed = {}
+    for name, pairs, nbytes, kernel, plain in (
+            ("computed_attention", N * band_pairs(chunk, ext, off, True, None), io,
+             lambda: CA.computed_attention(q, k, v, off, scale=scale),
+             lambda: CA.computed_attention_plain(q, k, v, off, scale=scale)),
+            ("masked_attention", N * chunk * ext, io + chunk * ext,
+             lambda: CA.masked_attention(q, k, v, mask[None], scale=scale),
+             lambda: CA.masked_attention_plain(q, k, v, mask[None], scale=scale))):
+        ops = 4 * pairs * hd
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
+        t = timed[name] = {
+            "ms": time_ms(torch, kernel, flush),
+            "plain_ms": time_ms(torch, plain, flush),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, scale=scale), flush),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "sq": chunk, "skv": ext, "q_offset": off, "bytes": nbytes, "operations": ops,
+        }
+        print(f"[time] {name} bf16 (N={N} Sq={chunk} Skv={ext} hd={hd} q_offset={off}):"
+              f" kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']};"
+              f" {nbytes} B, {ops} ops), plain {t['plain_ms']:.4f} ms,"
+              f" SDPA {t['library_ms']:.4f} ms, {t['bound_ms'] / t['ms']:.1%} of bound; {card}")
+    return timed
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -150,12 +414,19 @@ def main() -> int:
     print("[device] TF32 off for matmul and cuDNN: float32 products run in full float32")
 
     # ---- 2. build ---------------------------------------------------------
-    t0 = time.perf_counter()
-    log = build.build("paged_attention")
-    print(f"[build] paged_attention.cu with nvcc in {time.perf_counter() - t0:.2f}s")
-    for line in log.splitlines():
-        if "registers" in line:
-            print(f"[build] paged_attention: {line.strip()}")
+    # one nvcc per source, all started together
+    def timed_build(name):
+        t0 = time.perf_counter()
+        return build.build(name), time.perf_counter() - t0
+
+    sources = ("paged_attention", "chunked_attention")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        builds = dict(zip(sources, pool.map(timed_build, sources)))
+    for name, (log, seconds) in builds.items():
+        print(f"[build] {name}.cu with nvcc in {seconds:.2f}s")
+        for line in log.splitlines():
+            if "registers" in line:
+                print(f"[build] {name}: {line.strip()}")
 
     # ---- 3. kernel against its plain version at the serving shapes -------
     cfg = get_config("gpt-paper")                         # bf16, full width
@@ -352,10 +623,38 @@ def main() -> int:
               f" SDPA {t['library_ms']:.4f} ms, {t['bound_ms'] / t['ms']:.1%} of bound;"
               f" {card}")
 
-    # ---- 8. kernels lines and the result ---------------------------------
-    print("kernels: " + json.dumps([{"name": "paged_attention", "launches": launches,
-                                     "max_err_bf16": max_err["bfloat16"],
-                                     "max_err_fp32": max_err["float32"]}]))
+    # ---- 8. the compiler path: autochunk on gpt-paper at full width ------
+    # compile + drive (counts zeroed just before, read just after), for the
+    # computed-mask kernel and then, under mask_mode="bool", the masked one;
+    # each followed by the float32 check of chunked against unchunked logits
+    from repro_torch.kernels import chunked_attention as CA
+
+    cfg_c = cfg.with_(scan_layers=False)                  # 12 layers, bf16
+    fwd = {}
+    fp32_err = {}
+    for mode in ("auto", "bool"):
+        fwd[mode] = run_compiled_forward(torch, CA, stats, M, cfg_c, card, mask_mode=mode)
+        fp32_err[mode] = check_forward_fp32(torch, M, cfg_c, mask_mode=mode)
+        torch.cuda.empty_cache()
+
+    # ---- 9. the chunked-attention kernels against their plain versions --
+    c_chunk, ext = fwd["auto"]["chunk"], COMPILE["seq_len"]
+    attn_err = check_attention_kernels(torch, CA, c_chunk, ext)
+
+    # ---- 10. their times at the compiled forward's chunk shape ----------
+    attn_timed = time_attention_kernels(torch, F, CA, c_chunk, ext, flush, card)
+
+    # ---- 11. kernels lines and the result --------------------------------
+    launch_counts = {"paged_attention": launches,
+                     "computed_attention": fwd["auto"]["launches"],
+                     "masked_attention": fwd["bool"]["launches"]}
+    errs = {"paged_attention": max_err}
+    for (kname, dt_name), err in attn_err.items():
+        errs.setdefault(kname, {})[dt_name] = err
+    print("kernels: " + json.dumps([{"name": k, "launches": n,
+                                     "max_err_bf16": errs[k]["bfloat16"],
+                                     "max_err_fp32": errs[k]["float32"]}
+                                    for k, n in launch_counts.items()]))
     # the top-level times are the serving run's decode step, the shape it
     # launches most; "shapes" carries the longer decode and the mixed step
     entry = {
@@ -371,8 +670,25 @@ def main() -> int:
         "max_err_fp32": max_err["float32"],
         "shapes": timed,
     }
+    entries = [entry]
+    for kname, mode, line in (("computed_attention", "auto", 138),
+                              ("masked_attention", "bool", 223)):
+        t = attn_timed[kname]
+        entries.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/chunked_attention.cu",
+            "replaces": f"src/repro/kernels/chunked_attention.py:{line}",
+            "launches": launch_counts[kname],
+            "max_abs_err": errs[kname]["bfloat16"],
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "max_err_bf16": errs[kname]["bfloat16"],
+            "max_err_fp32": errs[kname]["float32"],
+            "shape": {k: t[k] for k in ("sq", "skv", "q_offset", "bytes", "operations")},
+            "forward": dict(fwd[mode], fp32_logits_err=fp32_err[mode]),
+        })
     print(card)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

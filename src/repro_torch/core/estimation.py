@@ -7,7 +7,9 @@ in-place ops extend their base's life and allocate nothing, see
 activation live while that node runs, the overall peak and where it sits.
 Birth and death follow the JAX package's estimator: a node's output counts
 while the node runs, is born if used later, and dies after its last use;
-inputs and weights are never counted in the peak.
+inputs and weights are never counted in the peak.  A chunk loop (after a
+rewrite by ``core.lowering``) adds its modeled per-iteration body peak, as
+the JAX estimator recurses into loop bodies.
 
 The aten graph is finer than a jaxpr in some places (one ``_softmax`` node
 where the jaxpr has max/sub/exp/sum/div) and coarser in others, so peaks
@@ -22,7 +24,7 @@ import torch
 from torch.fx import Node
 
 from . import stats
-from .graph import Graph, trace
+from .graph import Graph, node_outs, trace
 
 
 @dataclass
@@ -36,6 +38,16 @@ class MemoryProfile:
     weight_bytes: int             # parameter memory (excluded from peak)
 
 
+def _inner_peak(node) -> int:
+    """Per-iteration live bytes of a chunk loop's body (0 for an aten node).
+
+    The rewrite (``core.lowering``) models them when it builds the loop, so
+    a rewritten graph is estimated directly, never re-traced: a re-trace of
+    the emitted Python loop would unroll it into n_chunks copies of the body.
+    """
+    return 0 if isinstance(node, Node) else int(node.params["body_peak"])
+
+
 def estimate_memory(g: Graph) -> MemoryProfile:
     """Run the estimation pass over a :class:`~repro_torch.core.graph.Graph`."""
     stats.bump("estimate_calls")
@@ -45,15 +57,18 @@ def estimate_memory(g: Graph) -> MemoryProfile:
     peak = 0
     peak_node = 0
     for i, node in enumerate(g.nodes):
-        out_b = g.node_bytes(node)
-        cur = live_bytes + out_b
+        outs = node_outs(node)
+        out_b = sum(g.node_bytes(v) for v in outs)
+        cur = live_bytes + out_b + _inner_peak(node)
         per_node.append(cur)
         if cur > peak:
             peak, peak_node = cur, i
         # birth
-        if out_b and g.last_use.get(node, -1) > i and node not in live:
-            live.add(node)
-            live_bytes += out_b
+        for v in outs:
+            b = g.node_bytes(v)
+            if b and g.last_use.get(v, -1) > i and v not in live:
+                live.add(v)
+                live_bytes += b
         # death
         dead = [v for v in live if g.last_use.get(v, -1) <= i]
         for v in dead:

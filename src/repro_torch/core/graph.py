@@ -4,21 +4,26 @@ The JAX package traces a function to a flat jaxpr; the port traces it to a
 flat aten graph with ``make_fx(tracing_mode="fake")``.  Example arguments
 are tensors on the ``meta`` device (or fake tensors): shapes and dtypes
 only, nothing is materialized, as the JAX ``trace`` takes
-``ShapeDtypeStruct``s.
+``ShapeDtypeStruct``s.  A model is traced over a dict of its parameter
+tensors (``torch.func.functional_call``), so weights are placeholders under
+``weight_argnums``, never ``get_attr`` constants.
 
-A :class:`Graph` keeps the op nodes in program order, the bytes each node
-allocates (from ``meta["val"]``), the split of the inputs into weights and
-activations, and ``last_use`` per storage.  Unlike jaxpr values, aten
-nodes can alias: a view (``view``, ``permute``, ``t``, ``expand``, a
-``getitem`` of a split) or an in-place op allocates nothing and keeps its
-base alive.  Such a node carries 0 bytes and maps to the node that owns
-the storage (its ``root``), whose ``last_use`` covers every alias.
+FX ``Node``s take the place of jaxpr ``Var``s: a node is both the op and the
+value it produces.  A :class:`Graph` keeps the op nodes in program order
+(after a chunk rewrite, also ``core.lowering`` chunk-loop nodes, which read
+``invars`` and define ``outvars``), the bytes each value allocates (from
+``meta["val"]``), the split of the inputs into weights and activations,
+constants (``get_attr`` tensors), and liveness.  Unlike jaxpr values, aten
+nodes can alias: a view (``view``, ``permute``, ``expand``, a ``getitem`` of
+a split) or an in-place op allocates nothing and keeps its base alive.  Such
+a node carries 0 bytes and maps to the value that owns the storage (its
+``root``), whose ``last_use`` covers every alias.
 """
 from __future__ import annotations
 
 import operator
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Sequence, Set, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 from torch.fx import Node
@@ -37,7 +42,62 @@ def val_bytes(val: Any) -> int:
     return 0
 
 
-def _alias_source(node: Node):
+# The passes read shapes and sizes of the same values many times over; both
+# are cached in the node's meta (the trace belongs to the compiler).
+
+def atom_bytes(v: Node) -> int:
+    """Bytes of a value, alias or not."""
+    b = v.meta.get("autochunk_bytes")
+    if b is None:
+        b = v.meta["autochunk_bytes"] = val_bytes(v.meta.get("val"))
+    return b
+
+
+def vshape(v: Node) -> Tuple[int, ...]:
+    """Shape of a value; for a tuple/list value (a split), its first element's."""
+    shape = v.meta.get("autochunk_shape")
+    if shape is None:
+        val = v.meta.get("val")
+        while isinstance(val, (tuple, list)) and val:
+            val = val[0]
+        shape = tuple(val.shape) if isinstance(val, torch.Tensor) else ()
+        v.meta["autochunk_shape"] = shape
+    return shape
+
+
+def vdtype(v: Node):
+    val = v.meta.get("val")
+    return val.dtype if isinstance(val, torch.Tensor) else None
+
+
+def is_tensor_value(v: Node) -> bool:
+    return isinstance(v.meta.get("val"), torch.Tensor)
+
+
+def op_name(node) -> str:
+    """``"add"``, ``"view"``, ``"getitem"``...; ``""`` for non-FX nodes."""
+    if not isinstance(node, Node):
+        return ""
+    t = node.target
+    if t is operator.getitem:
+        return "getitem"
+    packet = getattr(t, "overloadpacket", None)
+    if packet is not None:
+        return packet.__name__
+    return getattr(t, "__name__", str(t))
+
+
+def node_outs(node) -> List[Node]:
+    """Values an entry of ``Graph.nodes`` defines."""
+    return [node] if isinstance(node, Node) else list(node.outvars)
+
+
+def node_ins(node) -> List[Node]:
+    """Values an entry of ``Graph.nodes`` reads."""
+    return list(node.all_input_nodes) if isinstance(node, Node) else list(node.invars)
+
+
+def alias_source(node: Node) -> Optional[Node]:
     """The input node whose storage ``node`` aliases, or None."""
     if node.target is operator.getitem:
         return node.args[0]
@@ -52,39 +112,51 @@ def _alias_source(node: Node):
 
 @dataclass
 class Graph:
-    """Flat aten graph of one traced function."""
+    """Flat aten graph of one traced function (possibly chunk-rewritten)."""
 
     invars: List[Node]                 # placeholders, in flattened arg order
     outvars: List[Node]
-    nodes: List[Node]                  # op nodes in program order
+    nodes: List[Any]                   # op nodes (and chunk loops) in order
     weight_invars: Set[Node] = field(default_factory=set)
+    consts: Dict[Node, torch.Tensor] = field(default_factory=dict)
     gm: Any = None                     # the traced torch.fx.GraphModule
 
     def __post_init__(self):
+        self.ins: List[List[Node]] = [node_ins(n) for n in self.nodes]
+        self.outs: List[List[Node]] = [node_outs(n) for n in self.nodes]
+        self.producer: Dict[Node, int] = {}
+        self.consumers: Dict[Node, List[int]] = {}
         self.root: Dict[Node, Node] = {}
-        for v in self.invars:
+        for v in list(self.invars) + list(self.consts):
             self.root[v] = v
-        for n in self.nodes:
-            src = _alias_source(n)
-            self.root[n] = self.root.get(src, src) if src is not None else n
-        self.last_use: Dict[Node, int] = {}
         for i, n in enumerate(self.nodes):
-            for a in n.all_input_nodes:
-                r = self.root.get(a, a)
-                self.last_use[r] = max(self.last_use.get(r, -1), i)
+            for ov in self.outs[i]:
+                self.producer[ov] = i
+                src = alias_source(ov) if isinstance(n, Node) else None
+                self.root[ov] = self.root.get(src, src) if src is not None else ov
+            for iv in self.ins[i]:
+                self.consumers.setdefault(iv, []).append(i)
         n_nodes = len(self.nodes)
+        # last_ref: last reader of each value; last_use: of each storage root
+        self.last_ref: Dict[Node, int] = {v: max(cs) for v, cs in self.consumers.items()}
         for v in self.outvars:
-            self.last_use[self.root[v]] = n_nodes  # live until the end
+            self.last_ref[v] = n_nodes  # live until the end
+        self.last_use: Dict[Node, int] = {}
+        for v, i in self.last_ref.items():
+            r = self.root.get(v, v)
+            self.last_use[r] = max(self.last_use.get(r, -1), i)
+        self.out_set: Set[Node] = set(self.outvars)
+        self.input_set: Set[Node] = set(self.invars) | set(self.consts)
 
-    def node_bytes(self, node: Node) -> int:
-        """Bytes ``node`` allocates: 0 for aliases and inputs."""
-        if self.root.get(node) is not node or node in self.invars:
+    def node_bytes(self, v: Node) -> int:
+        """Bytes value ``v`` allocates: 0 for aliases, inputs and constants."""
+        if self.root.get(v) is not v or v in self.input_set:
             return 0
-        return val_bytes(node.meta.get("val"))
+        return atom_bytes(v)
 
-    def var_bytes(self, node: Node) -> int:
-        """Bytes of ``node``'s value, alias or not."""
-        return val_bytes(node.meta.get("val"))
+    def var_bytes(self, v: Node) -> int:
+        """Bytes of ``v``'s value, alias or not."""
+        return atom_bytes(v)
 
 
 def trace(fn: Callable, example_args: Sequence[Any],
@@ -104,10 +176,59 @@ def trace(fn: Callable, example_args: Sequence[Any],
         if argi in weight_argnums:
             weight_set.update(placeholders[pos:pos + cnt])
         pos += cnt
+    consts = {n: getattr(gm, n.target) for n in gm.graph.nodes if n.op == "get_attr"}
     out_node = next(n for n in gm.graph.nodes if n.op == "output")
     out_leaves, out_spec = pytree.tree_flatten(out_node.args[0])
     outs = [a for a in out_leaves if isinstance(a, Node)]
     nodes = [n for n in gm.graph.nodes if n.op == "call_function"]
     g = Graph(invars=placeholders, outvars=outs, nodes=nodes,
-              weight_invars=weight_set, gm=gm)
+              weight_invars=weight_set, consts=consts, gm=gm)
     return g, out_spec
+
+
+# ---------------------------------------------------------------------------
+# FLOP model (the chunk-selection cost function reads it)
+# ---------------------------------------------------------------------------
+
+def _numel(v: Node) -> int:
+    val = v.meta.get("val")
+    if isinstance(val, torch.Tensor):
+        return val.numel()
+    if isinstance(val, (tuple, list)):
+        return sum(x.numel() for x in val if isinstance(x, torch.Tensor))
+    return 0
+
+
+def eqn_flops(node) -> float:
+    """Cheap analytic FLOP estimate for one graph entry."""
+    if not isinstance(node, Node):
+        # chunk loop: body nodes keep their full-extent values, so their
+        # summed flops already equal the total across iterations
+        return sum(eqn_flops(op.node) for op in node.params["body"])
+    f = node.meta.get("autochunk_flops")
+    if f is None:
+        f = node.meta["autochunk_flops"] = _node_flops(node)
+    return f
+
+
+def _node_flops(node: Node) -> float:
+    name = op_name(node)
+    if name in ("mm", "bmm", "addmm", "baddbmm"):
+        a = node.args[1] if name in ("addmm", "baddbmm") else node.args[0]
+        return 2.0 * _numel(node) * vshape(a)[-1]
+    if name in ("sum", "mean", "amax", "amin", "argmax", "argmin"):
+        return float(_numel(node.args[0]))
+    return float(_numel(node))
+
+
+def graph_flops(g: Graph, lo: int = 0, hi: Optional[int] = None) -> float:
+    hi = len(g.nodes) if hi is None else hi
+    return sum(eqn_flops(n) for n in g.nodes[lo:hi])
+
+
+def dim_stride(shape: Sequence[int], dim: int) -> int:
+    """Row-major stride (in elements) of ``dim``."""
+    s = 1
+    for d in shape[dim + 1:]:
+        s *= d
+    return s

@@ -12,6 +12,28 @@ from typing import Dict
 COUNTERS = (
     "trace_calls",          # graph captures (core.graph.trace)
     "estimate_calls",       # estimation passes (core.estimation.estimate_memory)
+    # chunk search / selection: one "pass" per invocation of the paper's
+    # chunk-search / chunk-selection stage (a bucket replay runs none)
+    "search_calls",
+    "rank_calls",
+    "search_passes",
+    "selection_passes",
+    # lowering: every apply_chunk rewrite (beam candidates included), and
+    # one emit per compiled plan
+    "lowering_rewrites",
+    "lowering_emits",
+    # kernel dispatch: chunk-loop bodies swapped for fused kernels, bodies
+    # examined and left as loops, and attention dispatches whose mask was a
+    # band computed from positions (no mask array read)
+    "kernel_dispatch_hits",
+    "kernel_dispatch_misses",
+    "kernel_dispatch_computed_mask",
+    # shape-bucketed plan reuse (core.config.ShapeBucketer)
+    "plan_replays",
+    "plan_replay_failures",
+    "plan_bucket_hits",
+    "plan_bucket_misses",
+    "plan_bucket_rejects",
     # paged serving: physical pages leaving / re-entering the free list,
     # planner-sized prompt chunks run, steps that carried prefill and decode
     # rows in one ragged batch, and admissions refused for lack of pages

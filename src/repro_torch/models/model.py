@@ -61,6 +61,18 @@ class Model(ParamTree):
         return forward(self.cfg, self, {"tokens": tokens}, window=window)
 
 
+def logits_fn(model: Model):
+    """``fn(params, batch) -> logits``: the forward over a dict of parameter
+    tensors (``dict(model.named_parameters())``) and a ``{"tokens": ...}``
+    batch.  The form the AutoChunk compiler traces: the weights are inputs
+    of the graph, not constants baked into it."""
+
+    def fn(params, batch):
+        return torch.func.functional_call(model, params, (batch["tokens"],))[0]
+
+    return fn
+
+
 def _index_tree(tree: ParamTree, i: int) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     for name, p in tree.named_parameters(recurse=False):

@@ -1,0 +1,151 @@
+"""Port attention kernels (plain versions, CPU) against the JAX Pallas kernels.
+
+The same numpy inputs go through ``repro.kernels.chunked_attention``'s
+``computed_attention`` / ``masked_attention`` in interpret mode (K and V
+repeated per query head, as ``ops._expand_gqa`` does) and through the port's
+wrappers on CPU tensors, which run the plain PyTorch versions with native
+GQA.  Tolerances: float32 1e-5 (the two sum in another order); bfloat16
+2e-3 + 2^-7 |want| (both round an f32 result to 8 mantissa bits and may land
+one unit apart).
+"""
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.tiling import legal_block
+from repro_torch.kernels import chunked_attention as CA
+
+# the package re-exports a function of the same name; take the module
+JCA = importlib.import_module("repro.kernels.chunked_attention")
+torch.set_num_threads(2)
+
+TOL = {"float32": (1e-5, 0.0), "bfloat16": (2e-3, 2.0 ** -7)}
+
+
+def _inputs(N, group, Sq, Skv, hd, dtype, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((N * group, Sq, hd), dtype=np.float32)
+    k = rng.standard_normal((N, Skv, hd), dtype=np.float32)
+    v = rng.standard_normal((N, Skv, hd), dtype=np.float32)
+    tq = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)]
+    # the JAX side gets the same (already rounded) values
+    jq = [jnp.asarray(t.float().numpy()).astype(dtype) for t in tq]
+    return tq, jq
+
+
+def _jax_repeat(k, group):
+    return jnp.repeat(k, group, axis=0)
+
+
+def _close(got, want, dtype):
+    atol, rtol = TOL[dtype]
+    got = np.asarray(got.float().numpy() if isinstance(got, torch.Tensor) else got, np.float32)
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
+
+
+# (Sq, Skv, group, causal, window, q_offset)
+COMPUTED = [
+    pytest.param(17, 60, 1, True, None, 43, id="sq17-causal-last-chunk"),
+    pytest.param(60, 128, 2, True, None, 0, id="sq60-causal-first-gqa2"),
+    pytest.param(128, 256, 4, True, None, 64, id="sq128-causal-mid-gqa4"),
+    pytest.param(60, 128, 1, False, None, 0, id="sq60-full"),
+    pytest.param(17, 60, 2, True, 16, 43, id="sq17-window-gqa2"),
+    pytest.param(128, 256, 1, True, 32, 128, id="sq128-window-last-chunk"),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,group,causal,window,q_offset", COMPUTED)
+def test_computed_matches_pallas_interpret(Sq, Skv, group, causal, window, q_offset, dtype):
+    (q, k, v), (jq, jk, jv) = _inputs(2, group, Sq, Skv, 32, dtype, seed=Sq + group)
+    scale = 32 ** -0.5
+    want = JCA.computed_attention(jq, _jax_repeat(jk, group), _jax_repeat(jv, group),
+                                  scale=scale, causal=causal, window=window,
+                                  q_offset=q_offset, interpret=True)
+    got = CA.computed_attention(q, k, v, q_offset, scale=scale, causal=causal,
+                                window=window, group=group)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_computed_default_offset_matches_attention_ref(dtype):
+    """q_offset=None right-aligns the queries, as ``ref.attention_ref`` does."""
+    (q, k, v), (jq, jk, jv) = _inputs(4, 1, 17, 60, 16, dtype, seed=3)
+    got = CA.computed_attention(q, k, v, scale=16 ** -0.5)
+    # attention_ref takes (B, S, H, hd)
+    want = jref.attention_ref(jnp.moveaxis(jq, 0, 1)[None], jnp.moveaxis(jk, 0, 1)[None],
+                              jnp.moveaxis(jv, 0, 1)[None], causal=True)
+    _close(got, np.moveaxis(np.asarray(want[0], np.float32), 1, 0), dtype)
+
+
+def test_computed_rows_with_no_live_key_follow_the_tile_skip():
+    """Rows before key 0 see no live key: they get the mean of V over the
+    keys of the kv tiles the band visits, as the Pallas kernel's skip does
+    at its own tile sizes."""
+    (q, k, v), (jq, jk, jv) = _inputs(2, 1, 40, 96, 16, "float32", seed=5)
+    scale = 0.25
+    want = np.asarray(JCA.computed_attention(jq, jk, jv, scale=scale, causal=True,
+                                             q_offset=-5, interpret=True))
+    bq, bkv = legal_block(40, 128), legal_block(96, 128)
+    got = CA.computed_attention_plain(q, k, v, -5, scale=scale, causal=True,
+                                      block_q=bq, block_kv=bkv)
+    _close(got, want, "float32")
+    # at the CUDA kernel's 64 x 64 tiles the first query tile reaches only
+    # the first kv tile: the dead rows average V over keys 0..63
+    got = CA.computed_attention(q, k, v, -5, scale=scale, causal=True)
+    np.testing.assert_allclose(got[:, :5].numpy(),
+                               v[:, None, :64].mean(dim=2).expand(2, 5, 16).numpy(),
+                               atol=1e-5)
+    np.testing.assert_allclose(got[:, 5:].numpy(), want[:, 5:], atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Skv,group,per_head", [
+    pytest.param(17, 60, 1, False, id="sq17-shared-mask"),
+    pytest.param(60, 128, 2, True, id="sq60-per-head-gqa2"),
+    pytest.param(128, 128, 4, False, id="sq128-shared-gqa4"),
+])
+def test_masked_matches_pallas_interpret(Sq, Skv, group, per_head, dtype):
+    (q, k, v), (jq, jk, jv) = _inputs(2, group, Sq, Skv, 32, dtype, seed=Skv + group)
+    rng = np.random.default_rng(Sq)
+    mask = rng.random((2 * group if per_head else 1, Sq, Skv)) < 0.6
+    mask[:, 3, :] = False                  # a row with no live key
+    scale = 32 ** -0.5
+    want = JCA.masked_attention(jq, _jax_repeat(jk, group), _jax_repeat(jv, group),
+                                jnp.asarray(mask), scale=scale, interpret=True)
+    got = CA.masked_attention(q, k, v, torch.from_numpy(mask), scale=scale, group=group)
+    _close(got, want, dtype)
+    # the dead row is the mean of V, as in the Pallas kernel
+    mean_v = v.float().repeat_interleave(group, dim=0).mean(dim=1)
+    _close(got[:, 3], mean_v.numpy(), dtype)
+
+
+def test_wrappers_check_shapes_and_devices():
+    q = torch.zeros((4, 8, 32))
+    k = torch.zeros((2, 8, 32))
+    with pytest.raises(ValueError):
+        CA.computed_attention(q, k, k, scale=1.0)            # 4 q heads, 2 kv, group 1
+    with pytest.raises(ValueError):
+        CA.masked_attention(q, k, k, torch.ones((3, 8, 8), dtype=torch.bool),
+                            scale=1.0, group=2)              # mask heads not in {1, 4}
+    with pytest.raises(TypeError):
+        CA.computed_attention(q, k.half(), k.half(), scale=1.0, group=2)
+    before = (CA.computed_attention.launches, CA.masked_attention.launches)
+    CA.computed_attention(q, k, k, scale=1.0, group=2)      # CPU: the plain version
+    assert (CA.computed_attention.launches, CA.masked_attention.launches) == before
+
+
+def test_band_tiles_bound_the_walk():
+    # causal, queries right-aligned at 1000..1099 against 1100 keys: the
+    # first query tile ends at position 1063, in kv tile 16
+    los, his = CA.band_tiles(100, 1100, 1000, causal=True, window=None)
+    assert los == [0, 0] and his == [17, 18]
+    # a window of 64 starts the walk at the tile holding key qpos - 63
+    los, _ = CA.band_tiles(100, 1100, 1000, causal=True, window=64)
+    assert los == [(1000 - 63) // 64, (1064 - 63) // 64]
