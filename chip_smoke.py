@@ -5,7 +5,7 @@
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 with ``nvcc`` (one compiler per source, in parallel) and drives the port's
-two paths at gpt-paper's full width:
+three paths, two at gpt-paper's full width and one at minitron-4b's:
 
 * serving: the paged engine, its kernel held against its plain version at
   the serving shapes, the served logits against the dense forward;
@@ -15,7 +15,19 @@ two paths at gpt-paper's full width:
   measured activation peaks and times of the chunked and unchunked
   forwards, and chunked against unchunked logits in float32.
   Both attention kernels are then held against their plain versions at the
-  compiled chunk shape (plus a window and a GQA case).
+  compiled chunk shape (plus a window and a GQA case);
+* per-block AutoChunk inside the model forward: minitron-4b's 32-layer bf16
+  forward of 8192 tokens with ``autochunk_budget=0.04``, one dense block
+  compiled at the first layer and replayed for the other 31, its attention
+  on ``computed_attention`` and its SwiGLU MLP on ``chunked_ffn``; the
+  block's predicted and measured activation peaks, ``computed_attention``
+  held against its plain version on layer 0's own inputs and at the plan's
+  chunk shape and offsets, the whole forward's peaks and times, chunked
+  against unchunked logits in float32 at 4 layers, and the bf16 logits of
+  the same weights against those float32 ones (per block no further than
+  1.5 times the unchunked bf16 logits).  ``chunked_ffn`` is then held
+  against its plain version at the block's chunk, 2048 and 17 rows, with
+  the fused and the separate weights.
 
 Each path runs with the kernels' launch counts zeroed just before and read
 just after.  Every kernel is timed beside its bound, its plain version and
@@ -159,20 +171,26 @@ def attention_case(torch, *, N, group, Sq, Skv, hd, dtype, seed):
     return q, k, v
 
 
-def check_attention_kernels(torch, CA, chunk, ext):
-    """Both chunked-attention kernels against their plain versions on the
-    card, at the compiled forward's chunk and gpt-paper's heads, plus a
-    window case and a GQA case.  Returns max errors per (kernel, dtype)."""
+def gpt_attention_cases(chunk, ext):
+    """The compiled gpt-paper forward's chunk at its first, middle and last
+    offset, plus a window case and a GQA case."""
     offsets = {"first": 0, "mid": (ext - chunk) // 2, "last": ext - chunk}
     cases = [dict(name=f"gpt_{k}", N=12, group=1, hd=64, off=o, window=None)
              for k, o in offsets.items()]
     cases += [dict(name="gpt_window", N=12, group=1, hd=64, off=offsets["mid"], window=1024),
               dict(name="gqa_last", N=8, group=4, hd=128, off=offsets["last"], window=None)]
-    errs = {}
+    return [dict(c, Sq=chunk, Skv=ext) for c in cases]
+
+
+def check_attention_kernels(torch, CA, cases, errs=None):
+    """Both chunked-attention kernels against their plain versions on the
+    card at each case's shape, in fp32 and bf16, on random inputs.  Returns
+    max errors per (kernel, dtype), merged into ``errs``."""
+    errs = {} if errs is None else errs
     for dt_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dt_name)
-        atol, rtol = TOL[dt_name]
         for i, c in enumerate(cases):
+            chunk, ext = c["Sq"], c["Skv"]
             q, k, v = attention_case(torch, N=c["N"], group=c["group"], Sq=chunk, Skv=ext,
                                      hd=c["hd"], dtype=dtype, seed=100 + i)
             scale = c["hd"] ** -0.5
@@ -201,21 +219,29 @@ def check_attention_kernels(torch, CA, chunk, ext):
                              lambda m=m: CA.masked_attention_plain(q, k, v, m, scale=scale,
                                                                    group=c["group"])))
             for kname, label, kernel, plain in runs:
-                got = kernel()
-                torch.cuda.synchronize()
-                want = plain()
-                torch.cuda.synchronize()
-                d = (got.float() - want.float()).abs()
-                err = float(d.max())
-                share = float((d / (atol + rtol * want.float().abs())).max())
-                check(bool(torch.isfinite(got).all()), f"{kname} {label} {dt_name}: non-finite")
-                print(f"[kernel] {kname} {label} {dt_name} Sq={chunk} Skv={ext}"
-                      f" H={c['N'] * c['group']} Kv={c['N']} hd={c['hd']} q_offset={c['off']}:"
-                      f" max_abs_err {err:.3e}, {share:.3f} of the limit {atol:g} + {rtol:g}|want|")
-                check(share <= 1.0, f"{kname} {label} {dt_name} err {err}")
+                err = hold(torch, kname, f"{label} {dt_name} Sq={chunk} Skv={ext}"
+                           f" H={c['N'] * c['group']} Kv={c['N']} hd={c['hd']}"
+                           f" q_offset={c['off']}", kernel, plain, TOL[dt_name])
                 errs[(kname, dt_name)] = max(errs.get((kname, dt_name), 0.0), err)
-                del got, want
     return errs
+
+
+def hold(torch, kname, label, kernel, plain, tol):
+    """One kernel call against its plain version, elementwise within
+    ``atol + rtol |want|``; prints and returns the max abs error."""
+    atol, rtol = tol
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    torch.cuda.synchronize()
+    d = (got.float() - want.float()).abs()
+    err = float(d.max())
+    share = float((d / (atol + rtol * want.float().abs())).max())
+    check(bool(torch.isfinite(got).all()), f"{kname} {label}: non-finite")
+    print(f"[kernel] {kname} {label}: max_abs_err {err:.3e}, {share:.3f} of the limit"
+          f" {atol:g} + {rtol:g}|want|")
+    check(share <= 1.0, f"{kname} {label} err {err}")
+    return err
 
 
 def compile_forward(torch, cfg, model, batch, *, mask_mode):
@@ -342,27 +368,32 @@ def check_forward_fp32(torch, M, cfg, *, mask_mode):
     return err
 
 
-def time_attention_kernels(torch, F, CA, chunk, ext, flush, card):
-    """Each kernel at the compiled forward's chunk shape (gpt-paper heads,
-    the last chunk, which sees every key) beside its bound, its plain
-    version and SDPA with the same mask."""
-    N, hd = 12, 64
-    off = ext - chunk
-    q, k, v = attention_case(torch, N=N, group=1, Sq=chunk, Skv=ext, hd=hd,
+def time_attention_kernels(torch, F, CA, chunk, ext, flush, card, *, N=12, group=1, hd=64,
+                           names=("computed_attention", "masked_attention")):
+    """Each kernel at one chunk shape (by default the compiled gpt-paper
+    forward's: gpt-paper heads, the last chunk, which sees every key) in
+    bf16, beside its bound, its plain version and SDPA with the same mask."""
+    H, off = N * group, ext - chunk
+    q, k, v = attention_case(torch, N=N, group=group, Sq=chunk, Skv=ext, hd=hd,
                              dtype=torch.bfloat16, seed=7)
     scale = hd ** -0.5
     qpos = off + torch.arange(chunk, device="cuda")[:, None]
     mask = torch.arange(ext, device="cuda")[None, :] <= qpos
     q4, k4, v4 = q[None], k[None], v[None]
-    io = 2 * (2 * N * chunk * hd + 2 * N * ext * hd)      # q, out, K, V in bf16
+    io = 2 * (2 * H * chunk * hd + 2 * N * ext * hd)      # q, out, K, V in bf16
+    runs = {
+        "computed_attention": (
+            H * band_pairs(chunk, ext, off, True, None), io,
+            lambda: CA.computed_attention(q, k, v, off, scale=scale, group=group),
+            lambda: CA.computed_attention_plain(q, k, v, off, scale=scale, group=group)),
+        "masked_attention": (
+            H * chunk * ext, io + chunk * ext,
+            lambda: CA.masked_attention(q, k, v, mask[None], scale=scale, group=group),
+            lambda: CA.masked_attention_plain(q, k, v, mask[None], scale=scale, group=group)),
+    }
     timed = {}
-    for name, pairs, nbytes, kernel, plain in (
-            ("computed_attention", N * band_pairs(chunk, ext, off, True, None), io,
-             lambda: CA.computed_attention(q, k, v, off, scale=scale),
-             lambda: CA.computed_attention_plain(q, k, v, off, scale=scale)),
-            ("masked_attention", N * chunk * ext, io + chunk * ext,
-             lambda: CA.masked_attention(q, k, v, mask[None], scale=scale),
-             lambda: CA.masked_attention_plain(q, k, v, mask[None], scale=scale))):
+    for name in names:
+        pairs, nbytes, kernel, plain = runs[name]
         ops = 4 * pairs * hd
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
@@ -370,16 +401,357 @@ def time_attention_kernels(torch, F, CA, chunk, ext, flush, card):
             "ms": time_ms(torch, kernel, flush),
             "plain_ms": time_ms(torch, plain, flush),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=mask, scale=scale), flush),
+                q4, k4, v4, attn_mask=mask, scale=scale, enable_gqa=group > 1), flush),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "sq": chunk, "skv": ext, "q_offset": off, "bytes": nbytes, "operations": ops,
+            "sq": chunk, "skv": ext, "q_offset": off, "heads": H, "kv_heads": N, "hd": hd,
+            "bytes": nbytes, "operations": ops,
         }
-        print(f"[time] {name} bf16 (N={N} Sq={chunk} Skv={ext} hd={hd} q_offset={off}):"
-              f" kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']};"
-              f" {nbytes} B, {ops} ops), plain {t['plain_ms']:.4f} ms,"
+        print(f"[time] {name} bf16 (H={H} Kv={N} Sq={chunk} Skv={ext} hd={hd}"
+              f" q_offset={off}): kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms"
+              f" ({t['bound_by']}; {nbytes} B, {ops} ops), plain {t['plain_ms']:.4f} ms,"
               f" SDPA {t['library_ms']:.4f} ms, {t['bound_ms'] / t['ms']:.1%} of bound; {card}")
     return timed
+
+
+# ---------------------------------------------------------------------------
+# The per-block path: minitron-4b's forward, one dense block compiled by
+# AutoChunk and replayed for every layer, with the chunked FFN kernel
+# ---------------------------------------------------------------------------
+
+BLOCK = dict(arch="minitron-4b", seq_len=8192,
+             # the block's plan chunks attention and the MLP at this budget
+             budget=0.04,
+             # depth of the float32 check: every layer replays one plan
+             fp32_layers=4)
+FFN_ROWS = (2048, 17)        # checked beside the block's own chunk
+
+
+def block_loops(planned):
+    """{dispatch kind: (rows per chunk, loop trips)} of a planned block."""
+    from repro_torch.core.lowering import is_chunk_loop
+
+    return {d.kind: (n.params["c"], n.params["n_iters"])
+            for n in planned.graph.nodes if is_chunk_loop(n) for d in n.params["dispatches"]}
+
+
+def block_batch(torch, cfg, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (1, BLOCK["seq_len"])),
+                                   device="cuda")}
+
+
+def max_logit_err(y1, y0, vocab):
+    """max |y1 - y0| over the real vocabulary, 1024 rows at a time."""
+    return max(float((y1[0, i:i + 1024, :vocab].float() - y0[0, i:i + 1024, :vocab].float())
+                     .abs().max()) for i in range(0, y0.shape[1], 1024))
+
+
+def capture_calls(torch, module, name, fn):
+    """Run ``fn`` with ``module.<name>`` wrapped so that every call's
+    arguments are kept (tensors copied); the wrapped kernel runs as usual.
+    The wrapper counts its launches on the module's name, so the spy holds
+    the count while it stands there."""
+    wrapped, calls = getattr(module, name), []
+
+    def spy(*args, **kw):
+        calls.append(([a.clone() if isinstance(a, torch.Tensor) else a for a in args], kw))
+        return wrapped(*args, **kw)
+
+    spy.launches = wrapped.launches
+    setattr(module, name, spy)
+    try:
+        with torch.no_grad():
+            fn()
+    finally:
+        setattr(module, name, wrapped)
+        wrapped.launches = spy.launches
+    return calls
+
+
+def check_block_attention(torch, CA, calls, errs):
+    """``computed_attention`` against its plain version at what the block's
+    plan gives it: first on layer 0's own inputs, chunk by chunk, in the
+    dtype the path runs; then on random inputs at the same shape (heads,
+    group, chunk, keys) and at its first and last offset, fp32 and bf16."""
+    offs = []
+    for i, ((q, k, v, off), kw) in enumerate(calls):
+        dt_name = str(q.dtype).removeprefix("torch.")
+        err = hold(torch, "computed_attention",
+                   f"block chunk {i} of layer 0 {dt_name} Sq={q.shape[1]} Skv={k.shape[1]}"
+                   f" H={q.shape[0]} Kv={k.shape[0]} hd={q.shape[2]} q_offset={off}",
+                   lambda: CA.computed_attention(q, k, v, off, **kw),
+                   lambda: CA.computed_attention_plain(q, k, v, off, **kw), TOL[dt_name])
+        errs[("computed_attention", dt_name)] = max(
+            errs.get(("computed_attention", dt_name), 0.0), err)
+        offs.append(off)
+    (q, k, _, _), kw = calls[0]
+    shape = dict(N=k.shape[0], group=kw["group"], hd=q.shape[2], Sq=q.shape[1],
+                 Skv=k.shape[1], window=kw["window"])
+    check(kw["causal"] and shape["group"] * shape["N"] == q.shape[0],
+          f"block attention call {kw}")
+    check_attention_kernels(torch, CA, [dict(shape, name="block_first", off=min(offs)),
+                                        dict(shape, name="block_last", off=max(offs))], errs)
+    return dict(calls=len(calls), dtype=str(q.dtype).removeprefix("torch."),
+                q_offsets=offs, **shape)
+
+
+def run_block_forward(torch, CA, CF, stats, M, card, attn_errs):
+    """The per-block path at full width: first forward (one search at layer
+    0, 31 replays), the plan replayed once more to read its loops, the block's
+    peaks on layer 0, then the whole forward unchunked and per block with the
+    kernel counts zeroed just before and read just after."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(BLOCK["arch"])                      # bf16, 32 layers, full width
+    cfg_ac = cfg.with_(autochunk_budget=BLOCK["budget"])
+    S, L = BLOCK["seq_len"], cfg.n_layers
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(5), device="cuda")
+    batch = block_batch(torch, cfg, 5)
+    M._AC_CACHE.clear()
+    before = stats.snapshot()
+    t0 = time.perf_counter()
+    y = M.forward(cfg_ac, model, batch)[0]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    d = stats.delta(before)
+    del y
+    (cf,) = M._AC_CACHE.values()
+    r = cf.autochunk_result
+    check(cf.counters["compiles"] == 1 and cf.counters["shape_hits"] == L - 1,
+          f"first forward: {cf.stats()}, want 1 compile and {L - 1} replays")
+    check(d["plan_bucket_misses"] == 1, f"{d['plan_bucket_misses']} bucket misses, want 1")
+    check(d["kernel_dispatch_hits"] == 2 and d["kernel_dispatch_computed_mask"] == 1
+          and d["kernel_dispatch_misses"] == 0,
+          f"dispatch hits {d['kernel_dispatch_hits']} (computed"
+          f" {d['kernel_dispatch_computed_mask']}), misses {d['kernel_dispatch_misses']};"
+          " want attention (computed mask) and SwiGLU, no miss")
+    print(f"[block] minitron-4b L={L} d={cfg.d_model} f={cfg.d_ff} {cfg.dtype} S={S} budget"
+          f" {BLOCK['budget']}: first forward {first_s:.2f}s, one block compile (host seconds"
+          f" trace {r.trace_s:.2f}, search {r.search_s:.2f}, compile"
+          f" {r.elapsed_s - r.trace_s - r.search_s:.2f}; {d['search_passes']} search passes),"
+          f" {cf.counters['shape_hits']} replays; predicted block peak {r.baseline_peak} B ->"
+          f" {r.final_peak} B (budget {r.budget_bytes} B, {r.reduction:.1%} reduction);"
+          f" dispatch hits {d['kernel_dispatch_hits']} (computed mask"
+          f" {d['kernel_dispatch_computed_mask']}), misses {d['kernel_dispatch_misses']}")
+    for line in r.report().splitlines()[6:]:
+        print(f"[block] {line.strip()}")
+
+    # the bucket's plan replayed on layer 0: its loops, with no search
+    p0 = M._index_tree(model["blocks"], 0)
+    h0 = M.embed_inputs(cfg, model, batch)[0]
+    before = stats.snapshot()
+    loops = block_loops(cf.trace(p0, h0).search())
+    check(stats.delta(before)["search_passes"] == 0, "the replay searched")
+    check(set(loops) == {"attention", "swiglu"}, f"dispatched loops {loops}")
+    print(f"[block] loops: attention {loops['attention'][1]} chunks of"
+          f" {loops['attention'][0]} rows, SwiGLU {loops['swiglu'][1]} chunks of"
+          f" {loops['swiglu'][0]} rows")
+
+    # one block's activation peak, unchunked and chunked, on layer 0
+    def block(p, x):
+        return M.dense_block_full(cfg, p, x, window=None, causal=cfg.causal)
+
+    with torch.no_grad():
+        block(p0, h0)
+        _, bpeak0, bms0 = measure_forward(torch, block, (p0, h0))
+        _, bpeak1, bms1 = measure_forward(torch, cf, (p0, h0))
+    print(f"[block] layer 0 activation peak: unchunked {bpeak0} B (predicted"
+          f" {r.baseline_peak} B, {bpeak0 / r.baseline_peak:.4f}x), chunked {bpeak1} B"
+          f" (predicted {r.final_peak} B, {bpeak1 / r.final_peak:.4f}x); time unchunked"
+          f" {bms0:.2f} ms, chunked {bms1:.2f} ms; {card}")
+    check(abs(bpeak1 - r.final_peak) <= 0.05 * r.final_peak,
+          f"chunked block peak {bpeak1} B is not within 5% of the predicted {r.final_peak} B")
+
+    # the attention kernel at the plan's own chunk shape and offsets
+    calls = capture_calls(torch, CA, "computed_attention", lambda: cf(p0, h0))
+    check(len(calls) == loops["attention"][1],
+          f"{len(calls)} attention calls in one block, want {loops['attention'][1]}")
+    attn_check = check_block_attention(torch, CA, calls, attn_errs)
+    del calls
+
+    # the whole forward, unchunked and per block
+    def unchunked():
+        return M.forward(cfg, model, batch)[0]
+
+    def per_block():
+        return M.forward(cfg_ac, model, batch)[0]
+
+    unchunked()
+    y0, peak0, ms0 = measure_forward(torch, unchunked, ())
+    hits = cf.counters["shape_hits"]
+    before = stats.snapshot()
+    CA.computed_attention.launches = CF.chunked_ffn.launches = 0
+    y1, peak1, ms1 = measure_forward(torch, per_block, ())
+    n_ffn, n_attn = CF.chunked_ffn.launches, CA.computed_attention.launches
+    d = stats.delta(before)
+    check(d["search_passes"] == 0 and cf.counters["shape_hits"] - hits == L,
+          f"second forward: {d['search_passes']} search passes,"
+          f" {cf.counters['shape_hits'] - hits} replays")
+    check(n_ffn == L * loops["swiglu"][1],
+          f"chunked_ffn launched {n_ffn} times, want {L} x {loops['swiglu'][1]}")
+    check(n_attn == L * loops["attention"][1],
+          f"computed_attention launched {n_attn} times, want {L} x {loops['attention'][1]}")
+    check(bool(torch.isfinite(y1[..., :cfg.vocab_size]).all()), "non-finite per-block logits")
+    bf16_err = max_logit_err(y1, y0, cfg.vocab_size)
+    print(f"[forward] minitron-4b per-block: whole-forward peak unchunked {peak0} B, per"
+          f" block {peak1} B (the {S} x {cfg.vocab_padded} logits set both); time"
+          f" unchunked {ms0:.2f} ms, per block {ms1:.2f} ms; chunked_ffn launches {n_ffn} ="
+          f" {L} layers x {loops['swiglu'][1]} chunks, computed_attention launches {n_attn}"
+          f" = {L} layers x {loops['attention'][1]} chunks; bf16 logits max |delta| vs"
+          f" unchunked {bf16_err:.3e} (bounded against float32 at 4 layers below); {card}")
+    del y0, y1
+    trace = device_time_split(torch, per_block, card)
+    del model, p0, h0
+    M._AC_CACHE.clear()
+    return dict(launches=n_ffn, attention_launches=n_attn, chunk=loops["swiglu"][0],
+                attention_chunk=loops["attention"][0], attention_check=attn_check,
+                bf16_logits_err=bf16_err, stages=len(r.plan),
+                pred_block0=r.baseline_peak, pred_block1=r.final_peak, block_peak0=bpeak0,
+                block_peak1=bpeak1, peak0=peak0, peak1=peak1, ms0=ms0, ms1=ms1,
+                trace_s=r.trace_s, search_s=r.search_s, device_ms=trace)
+
+
+def device_time_split(torch, fn, card):
+    """Device time of one call by kernel name under ``torch.profiler``
+    (informational; the profiler's host overhead stretches the wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    del out
+    device_us = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            device_us[e.name] += e.time_range.elapsed_us()
+    busy = sum(device_us.values()) / 1e3
+    if busy == 0:
+        print("[trace] torch.profiler recorded no device time: the per-block forward's"
+              " split is not measured")
+        return {}
+    split = {"busy": busy}
+    for key, pats in (("chunked_ffn", ("ffn_", "cast_bf16")),
+                      ("computed_attention", ("chunk_attention",)),
+                      ("matmul", ("gemm", "nvjet"))):
+        split[key] = sum(us for n, us in device_us.items()
+                         if any(p in n for p in pats)) / 1e3
+    print(f"[trace] per-block forward on the device: busy {busy:.2f} ms; chunked_ffn kernels"
+          f" {split['chunked_ffn']:.2f} ms, computed_attention {split['computed_attention']:.2f}"
+          f" ms, cuBLAS products {split['matmul']:.2f} ms; {card}")
+    for n, us in device_us.most_common(8):
+        print(f"[trace]   {us / 1e3:10.3f} ms  {n[:100]}")
+    return split
+
+
+def check_block_forward_fp32(torch, CF, stats, M):
+    """Chunked against unchunked logits in float32 at full width and S 8192,
+    depth cut to 4 layers (each layer replays the one plan).  Then the same
+    weights rounded to bf16: the per-block bf16 logits may stray from the
+    float32 ones no further than 1.5 times the unchunked bf16 logits do."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(BLOCK["arch"]).with_(dtype="float32", n_layers=BLOCK["fp32_layers"])
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(6), device="cuda")
+    batch = block_batch(torch, cfg, 6)
+    M._AC_CACHE.clear()
+    with torch.no_grad():
+        y0 = M.forward(cfg, model, batch)[0]
+        before = stats.snapshot()
+        ffn0 = CF.chunked_ffn.launches
+        y1 = M.forward(cfg.with_(autochunk_budget=BLOCK["budget"]), model, batch)[0]
+    d = stats.delta(before)
+    check(d["kernel_dispatch_hits"] == 2 and d["kernel_dispatch_computed_mask"] == 1
+          and d["kernel_dispatch_misses"] == 0, f"fp32 dispatch: {d}")
+    check(CF.chunked_ffn.launches > ffn0, "fp32: chunked_ffn never launched")
+    err = max_logit_err(y1, y0, cfg.vocab_size)
+    (cf,) = M._AC_CACHE.values()
+    print(f"[forward] minitron-4b per-block fp32 L={cfg.n_layers} S={BLOCK['seq_len']}:"
+          f" {len(cf.autochunk_result.plan)} stages, attention and SwiGLU dispatched;"
+          f" chunked vs unchunked logits max_abs_err {err:.3e} (limit 1e-3)")
+    check(err <= 1e-3, f"fp32 per-block logits differ by {err}")
+    del y1
+
+    cfg16 = cfg.with_(dtype="bfloat16")
+    model.to(torch.bfloat16)
+    M._AC_CACHE.clear()
+    with torch.no_grad():
+        y16 = M.forward(cfg16, model, batch)[0]
+        err_u = max_logit_err(y16, y0, cfg.vocab_size)
+        del y16
+        before = stats.snapshot()
+        y16 = M.forward(cfg16.with_(autochunk_budget=BLOCK["budget"]), model, batch)[0]
+    d = stats.delta(before)
+    check(d["kernel_dispatch_hits"] == 2 and d["kernel_dispatch_misses"] == 0,
+          f"bf16 dispatch: {d}")
+    err_c = max_logit_err(y16, y0, cfg.vocab_size)
+    print(f"[forward] minitron-4b bf16 L={cfg.n_layers} S={BLOCK['seq_len']} against the"
+          f" float32 logits of the same weights: unchunked max_abs_err {err_u:.3e}, per"
+          f" block {err_c:.3e} ({err_c / err_u:.3f}x; limit 1.5x)")
+    check(err_c <= 1.5 * err_u, f"bf16 per-block logits stray {err_c} from float32,"
+          f" the unchunked bf16 ones {err_u}")
+    del y0, y16, model
+    M._AC_CACHE.clear()
+    return dict(fp32_logits_err=err, bf16_vs_fp32_unchunked=err_u, bf16_vs_fp32_per_block=err_c)
+
+
+def ffn_case(torch, c, d, f, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((c, d), generator=g, device="cuda").to(dtype)
+    w_in = (torch.randn((d, 2 * f), generator=g, device="cuda") * d ** -0.5).to(dtype)
+    wd = (torch.randn((f, d), generator=g, device="cuda") * f ** -0.5).to(dtype)
+    return x, w_in, wd
+
+
+def check_ffn_kernel(torch, CF, cfg, rows):
+    """The kernel against its plain version on the card, at minitron's width
+    (fused w_in read in place, and separate contiguous weights)."""
+    d, f = cfg.d_model, cfg.d_ff
+    errs = {}
+    for dt_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt_name)
+        for i, c in enumerate(rows):
+            x, w_in, wd = ffn_case(torch, c, d, f, dtype, seed=200 + i)
+            wu, wg = w_in[:, :f], w_in[:, f:]
+            wgc, wuc = wg.contiguous(), wu.contiguous()
+            forms = {"fused": lambda: CF.chunked_ffn_fused(x, w_in, wd),
+                     "separate": lambda: CF.chunked_ffn(x, wgc, wuc, wd)}
+            for form, kernel in forms.items():
+                err = hold(torch, "chunked_ffn", f"{form} {dt_name} c={c} d={d} f={f}", kernel,
+                           lambda: CF.chunked_ffn_plain(x, wg, wu, wd), TOL[dt_name])
+                errs[dt_name] = max(errs.get(dt_name, 0.0), err)
+            del x, w_in, wd, wg, wu, wgc, wuc, forms
+    return errs
+
+
+def time_ffn_kernel(torch, F, CF, cfg, c, flush, card):
+    """The kernel at the block's chunk in bf16, fused w_in as on the main
+    path, beside its bound, its plain version and the eager chain of three
+    cuBLAS products and two elementwise kernels (no one PyTorch call
+    computes SwiGLU)."""
+    d, f = cfg.d_model, cfg.d_ff
+    x, w_in, wd = ffn_case(torch, c, d, f, torch.bfloat16, seed=7)
+    wu, wg = w_in[:, :f], w_in[:, f:]
+    nbytes = (3 * d * f + 2 * c * d) * 2          # weights once, x in, out
+    ops = 6 * c * d * f
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    t = {
+        "ms": time_ms(torch, lambda: CF.chunked_ffn_fused(x, w_in, wd), flush),
+        "plain_ms": time_ms(torch, lambda: CF.chunked_ffn_plain(x, wg, wu, wd), flush),
+        "library_ms": time_ms(torch, lambda: (F.silu(x @ wg) * (x @ wu)) @ wd, flush),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "rows": c, "d": d, "f": f, "bytes": nbytes, "operations": ops,
+    }
+    print(f"[time] chunked_ffn bf16 (c={c} d={d} f={f}, fused w_in): kernel {t['ms']:.4f} ms,"
+          f" bound {t['bound_ms']:.4f} ms ({t['bound_by']}; {nbytes} B, {ops} ops), plain"
+          f" {t['plain_ms']:.4f} ms, cuBLAS chain {t['library_ms']:.4f} ms,"
+          f" {t['bound_ms'] / t['ms']:.1%} of bound; {card}")
+    return t
 
 
 def main() -> int:
@@ -419,7 +791,7 @@ def main() -> int:
         t0 = time.perf_counter()
         return build.build(name), time.perf_counter() - t0
 
-    sources = ("paged_attention", "chunked_attention")
+    sources = ("paged_attention", "chunked_attention", "chunked_ffn")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = dict(zip(sources, pool.map(timed_build, sources)))
     for name, (log, seconds) in builds.items():
@@ -639,16 +1011,39 @@ def main() -> int:
 
     # ---- 9. the chunked-attention kernels against their plain versions --
     c_chunk, ext = fwd["auto"]["chunk"], COMPILE["seq_len"]
-    attn_err = check_attention_kernels(torch, CA, c_chunk, ext)
+    attn_err = check_attention_kernels(torch, CA, gpt_attention_cases(c_chunk, ext))
 
     # ---- 10. their times at the compiled forward's chunk shape ----------
     attn_timed = time_attention_kernels(torch, F, CA, c_chunk, ext, flush, card)
 
-    # ---- 11. kernels lines and the result --------------------------------
+    # ---- 11. per-block AutoChunk in minitron-4b's forward ----------------
+    # counts zeroed just before the per-block forward and read just after;
+    # then the float32 check at 4 layers
+    from repro_torch.kernels import chunked_ffn as CF
+
+    torch.cuda.empty_cache()
+    block = run_block_forward(torch, CA, CF, stats, M, card, attn_err)
+    torch.cuda.empty_cache()
+    block.update(check_block_forward_fp32(torch, CF, stats, M))
+    torch.cuda.empty_cache()
+
+    # ---- 12. computed_attention's time at the block's last chunk ---------
+    ac = block["attention_check"]
+    block_attn_timed = time_attention_kernels(
+        torch, F, CA, ac["Sq"], ac["Skv"], flush, card, N=ac["N"], group=ac["group"],
+        hd=ac["hd"], names=("computed_attention",))["computed_attention"]
+
+    # ---- 13. chunked_ffn against its plain version, then its time --------
+    mcfg = get_config(BLOCK["arch"])
+    ffn_err = check_ffn_kernel(torch, CF, mcfg, (block["chunk"],) + FFN_ROWS)
+    ffn_timed = time_ffn_kernel(torch, F, CF, mcfg, block["chunk"], flush, card)
+
+    # ---- 14. kernels lines and the result --------------------------------
     launch_counts = {"paged_attention": launches,
                      "computed_attention": fwd["auto"]["launches"],
-                     "masked_attention": fwd["bool"]["launches"]}
-    errs = {"paged_attention": max_err}
+                     "masked_attention": fwd["bool"]["launches"],
+                     "chunked_ffn": block["launches"]}
+    errs = {"paged_attention": max_err, "chunked_ffn": ffn_err}
     for (kname, dt_name), err in attn_err.items():
         errs.setdefault(kname, {})[dt_name] = err
     print("kernels: " + json.dumps([{"name": k, "launches": n,
@@ -687,6 +1082,23 @@ def main() -> int:
             "shape": {k: t[k] for k in ("sq", "skv", "q_offset", "bytes", "operations")},
             "forward": dict(fwd[mode], fp32_logits_err=fp32_err[mode]),
         })
+    entries[1]["block_shape"] = block_attn_timed
+    # computed_attention also carries the per-block path: its launches there
+    # are in the chunked_ffn entry's "forward" record, its time at that
+    # path's chunk in its own "block_shape"
+    entries.append({
+        "name": "chunked_ffn",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/chunked_ffn.cu",
+        "replaces": "src/repro/kernels/chunked_ffn.py:55",
+        "launches": block["launches"],
+        "max_abs_err": ffn_err["bfloat16"],
+        **{k: ffn_timed[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "max_err_bf16": ffn_err["bfloat16"],
+        "max_err_fp32": ffn_err["float32"],
+        "shape": {k: ffn_timed[k] for k in ("rows", "d", "f", "bytes", "operations")},
+        "forward": block,
+    })
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

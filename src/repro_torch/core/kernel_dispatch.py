@@ -18,13 +18,26 @@ read.  Any other mask, or every mask under ``mask_mode="bool"``, keeps
 The kernel reads q, K and V at their sources: the matcher looks through the
 ``.float()`` casts to the bf16 tensors and through ``expand``/``clone``/
 ``_unsafe_view`` to the un-repeated K and V, so each kv head is read once
-(native GQA) and the repeated copies the plain graph makes are pruned.
+(native GQA) and the repeated copies the plain graph makes are pruned.  It
+stops at a cast that rounds (RoPE's ``.to(bf16)``), so the kernel reads
+the rounded K the program reads, and runs in bf16 when every operand holds
+bf16 values exactly (a sliced f32 copy of a bf16 q does).
+
+SwiGLU bodies dispatch onto :func:`repro_torch.kernels.chunked_ffn.chunked_ffn`:
+
+    mm(x, w_in) -> [view] -> split | slices -> u, g
+      -> mul(u, silu(g) | g * sigmoid(g)) -> [view] -> mm(h, w_down)
+
+(the fused ``w_in`` of ``layers.mlp``, whose ``torch.chunk`` the JAX
+matcher misses), or ``silu(x @ w_gate) * (x @ w_up) @ w_down``.  The kernel
+reads the fused weight's halves in place as column views.  GELU-gated
+bodies do not match.
 
 A match replaces its interior nodes with one
 :class:`~repro_torch.core.lowering.KernelDispatch` record (the chunk loop
-stays); non-matching bodies keep the generic loop.  The SwiGLU matcher of
-the JAX package waits for the ``chunked_ffn`` slice: such bodies count as
-misses.  ``annotate_candidates`` runs the matcher during selection.  Counters
+stays); non-matching bodies keep the generic loop.  ``annotate_candidates``
+runs the matchers during selection and charges each candidate its kernel's
+bytes.  Counters
 ``kernel_dispatch_hits`` / ``kernel_dispatch_misses`` /
 ``kernel_dispatch_computed_mask`` in ``core.stats``.  A port of
 ``repro/core/kernel_dispatch.py``.
@@ -32,6 +45,7 @@ misses.  ``annotate_candidates`` runs the matcher during selection.  Counters
 from __future__ import annotations
 
 import math
+import operator
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
@@ -55,7 +69,6 @@ _PASS = ("_to_copy", "clone", "alias", "detach", "contiguous", "lift_fresh_copy"
 _VIEWS = ("view", "_unsafe_view", "reshape")
 _CHAIN = _PASS + _VIEWS + ("permute", "transpose", "t", "unsqueeze", "squeeze", "expand")
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_SOFTMAX = ("_softmax", "softmax")
 
 
 @dataclass
@@ -116,9 +129,15 @@ class Match:
     root: Node
     reads: Tuple[Node, ...]
     launch: Callable            # fn(env, kw) -> value for root
-    tile_bytes: int             # selection-time charge of the dispatched body
-    extra_bytes: Callable[[int], int]   # scratch bytes at chunk size c
+    extra_bytes: Callable[[int], int]   # bytes the call allocates besides root, at chunk c
+    root_row_bytes: int                 # bytes of root per row of the chunk
     mask: str = "bool"                  # "computed" (a band) or "bool"
+
+    def body_bytes(self, c: int) -> int:
+        """Device bytes of the dispatched body at chunk ``c``: the root and
+        everything the call allocates beside it.  Selection charges this;
+        the estimator charges the same root and ``extra_bytes(c)``."""
+        return self.root_row_bytes * c + self.extra_bytes(c)
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +185,12 @@ def _prod(xs) -> int:
     return int(math.prod(xs)) if xs else 1
 
 
+def _row_bytes(ctx: _BodyCtx, v: Node) -> int:
+    """Bytes of body value ``v`` per row of the chunked dim."""
+    shape = vshape(v)
+    return _prod(shape) // shape[ctx.var_dim[v]] * _itemsize(vdtype(v))
+
+
 def _leading_reshape(op: BodyOp) -> bool:
     """A reshape of the leading dims only: the last two dims unchanged."""
     src = op.args[0]
@@ -201,9 +226,26 @@ class _Chain:
     repeat_at: int = -1                            # step index of the GQA expand
 
 
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _cast_kind(v: Node, src) -> Optional[str]:
+    """How a float-to-float ``_to_copy`` from ``src`` to ``v`` treats values:
+    ``"same"`` dtype, ``"widen"`` (every value kept exactly) or ``"round"``;
+    None for anything else."""
+    a, b = vdtype(src) if isinstance(src, Node) else None, vdtype(v)
+    if a is None or b is None or not (a.is_floating_point and b.is_floating_point):
+        return None
+    if a == b:
+        return "same"
+    return "widen" if _itemsize(b) > _itemsize(a) else "round"
+
+
 def _walk_chain(ctx: _BodyCtx, v: Node, outward: bool) -> _Chain:
     """Walk back through layout ops and casts.  Stops at a sliced input, at
-    a non-layout op, or (unless ``outward``) at the body's edge."""
+    a non-layout op, at a cast that rounds (the program reads the rounded
+    value), or (unless ``outward``) at the body's edge."""
     steps = []
     cur = v
     while cur not in ctx.sliced:
@@ -216,9 +258,35 @@ def _walk_chain(ctx: _BodyCtx, v: Node, outward: bool) -> _Chain:
             break
         if nm not in _CHAIN or not isinstance(args[0], Node):
             break
+        if nm == "_to_copy" and _cast_kind(cur, args[0]) == "round":
+            break
         steps.append((nm, args, cur))
         cur = args[0]
     return _Chain(source=cur, steps=list(reversed(steps)))
+
+
+def _exact_dtype(ctx: _BodyCtx, v: Node):
+    """The narrowest float dtype that holds ``v``'s values exactly: the
+    source of a widening cast found by walking back through layout ops
+    (inside the body or outside it, read-only), else ``v``'s own dtype.
+    A loop that slices the f32 copy of a bf16 tensor so hands the kernel
+    values it can read back in bf16 without rounding."""
+    cur = v
+    for _ in range(16):
+        got = _args_of(ctx, cur)
+        if got is None:
+            break
+        nm, args = got
+        if nm not in _CHAIN or not isinstance(args[0], Node):
+            break
+        if nm == "_to_copy":
+            kind = _cast_kind(cur, args[0])
+            if kind == "widen":
+                return vdtype(args[0])
+            if kind != "same":
+                break
+        cur = args[0]
+    return vdtype(v)
 
 
 def _find_gqa_repeat(chain: _Chain, nb: int) -> None:
@@ -485,11 +553,11 @@ def _try_attention(ctx: _BodyCtx, i_sm: int, mask_mode: str = "auto") -> Optiona
         k_chain.group = v_chain.group = 1
         k_chain.repeat_at = v_chain.repeat_at = -1
     group = k_chain.group
-    dtypes = {vdtype(c.source) for c in (q_chain, k_chain, v_chain)}
+    dtypes = {_exact_dtype(ctx, c.source) for c in (q_chain, k_chain, v_chain)}
     kdtype = dtypes.pop() if len(dtypes) == 1 else None
     if kdtype not in _KERNEL_DTYPES:
         kdtype = torch.float32
-    itemsize = torch.empty((), dtype=kdtype).element_size()
+    itemsize = _itemsize(kdtype)
     root_dtype = vdtype(root)
     scale_f = float(scale)
 
@@ -557,29 +625,206 @@ def _try_attention(ctx: _BodyCtx, i_sm: int, mask_mode: str = "auto") -> Optiona
         mask_bytes = mask_heads * skv
         variant = "bool"
 
+    # the kernel's output is the root itself unless a cast to the root's
+    # dtype copies it (bf16 operands of an f32 product)
+    out_copies = 2 if kdtype != root_dtype else 1
+
     def extra_bytes(c: int) -> int:
         # contiguous q, K, V (and mask) operands and the kernel output
-        return kv_bytes + 2 * nb * c * hd * itemsize + mask_bytes * c
-
-    from ..kernels.chunked_attention import BLOCK_Q
+        return kv_bytes + out_copies * nb * c * hd * itemsize + mask_bytes * c
 
     return Match(kind="attention", interior=interior, at=i_dg2, root=root, reads=reads,
-                 launch=launch, tile_bytes=extra_bytes(BLOCK_Q), extra_bytes=extra_bytes,
-                 mask=variant)
+                 launch=launch, extra_bytes=extra_bytes,
+                 root_row_bytes=_row_bytes(ctx, root), mask=variant)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU matcher
+# ---------------------------------------------------------------------------
+
+def _back_through_views(ctx: _BodyCtx, v, interior: Set[int]):
+    """Walk back from ``v`` through body reshapes that keep the last dim
+    (the ``view(B*S, n)`` around each ``mm``), adding them to ``interior``."""
+    for _ in range(4):
+        i, op = ctx.op_of(v)
+        if op is None or op_name(op.node) not in _VIEWS or not isinstance(op.args[0], Node) \
+                or vshape(op.args[0])[-1:] != vshape(op.node)[-1:]:
+            return v
+        interior.add(i)
+        v = op.args[0]
+    return v
+
+
+def _plain_mm(ctx: _BodyCtx, v) -> Optional[Tuple[int, BodyOp]]:
+    """The body ``mm(x, w)`` defining ``v``, with ``w`` a rank-2 value that
+    is not chunked (a weight), or None."""
+    i, op = ctx.op_of(v)
+    if op is None or op_name(op.node) != "mm":
+        return None
+    x, w = op.args[:2]
+    if not (isinstance(x, Node) and isinstance(w, Node)) or ctx.var_dim.get(w) is not None:
+        return None
+    return i, op
+
+
+def _silu_input(ctx: _BodyCtx, v) -> Optional[Tuple[Node, Set[int]]]:
+    """If ``v`` is ``silu(g)`` or ``g * sigmoid(g)``: (g, the body positions)."""
+    i, op = ctx.op_of(v)
+    if op is None:
+        return None
+    nm = op_name(op.node)
+    if nm == "silu" and isinstance(op.args[0], Node):
+        return op.args[0], {i}
+    if nm == "mul":
+        a, b = op.args[:2]
+        for g_v, s_v in ((a, b), (b, a)):
+            j, sop = ctx.op_of(s_v)
+            if sop is not None and op_name(sop.node) == "sigmoid" and sop.args[0] is g_v:
+                return g_v, {i, j}
+    return None
+
+
+def _column_part(ctx: _BodyCtx, v) -> Optional[Tuple[Node, int, int, int]]:
+    """If ``v`` is a last-dim part of a body value ``t`` (a ``getitem`` of a
+    ``split`` / ``split_with_sizes``, or a ``slice``): (t, start, stop, body
+    position of the ``split`` or ``slice``), else None."""
+    i, op = ctx.op_of(v)
+    if op is None:
+        return None
+    nm = op_name(op.node)
+    if nm == "slice":
+        t, dim = op.args[0], op.args[1] if len(op.args) > 1 else 0
+        rank = len(vshape(t))
+        step = op.args[4] if len(op.args) > 4 else 1
+        if dim % rank != rank - 1 or step != 1:
+            return None
+        # the FX node's own arguments: never chunk-adjusted
+        start = op.node.args[2] if len(op.node.args) > 2 and op.node.args[2] is not None else 0
+        if start < 0:
+            return None
+        return t, int(start), int(start) + vshape(op.node)[-1], i
+    if op.node.target is not operator.getitem:
+        return None
+    j, sop = ctx.op_of(op.args[0])
+    if sop is None or op_name(sop.node) not in ("split", "split_with_sizes"):
+        return None
+    t = sop.args[0]
+    rank = len(vshape(t))
+    dim = sop.args[2] if len(sop.args) > 2 else 0
+    if dim % rank != rank - 1:
+        return None
+    sizes = [int(p.shape[-1]) for p in sop.node.meta["val"]]
+    k = int(op.args[1])
+    start = sum(sizes[:k])
+    return t, start, start + sizes[k], j
+
+
+def _try_swiglu(ctx: _BodyCtx, i_dn: int) -> Optional[Match]:
+    """``(silu(g) * u) @ w_down`` with g and u either column parts of one
+    ``x @ w_in`` (the fused form ``layers.mlp`` writes) or ``x @ w_gate`` and
+    ``x @ w_up`` on the same x.  Rooted at the down projection's ``mm``."""
+    got = _plain_mm(ctx, ctx.ops[i_dn].node)
+    if got is None:
+        return None
+    _, dn = got
+    interior: Set[int] = {i_dn}
+    wd = dn.args[1]
+    i_m, mul = ctx.op_of(_back_through_views(ctx, dn.args[0], interior))
+    if mul is None or op_name(mul.node) != "mul":
+        return None
+    interior.add(i_m)
+    a, b = mul.args[:2]
+    for s_v, u_v in ((a, b), (b, a)):
+        silu = _silu_input(ctx, s_v) if isinstance(u_v, Node) else None
+        if silu is not None:
+            break
+    if silu is None:
+        return None
+    g_v, silu_ids = silu
+    interior |= silu_ids
+
+    gp, up = _column_part(ctx, g_v), _column_part(ctx, u_v)
+    if gp is not None and up is not None:
+        # fused w_in: u, g = split(x @ w_in, 2, dim=-1)
+        if gp[0] is not up[0] or gp[2] - gp[1] != up[2] - up[1]:
+            return None
+        for part_v, (_, _, _, j) in ((g_v, gp), (u_v, up)):
+            interior |= {ctx.producer[part_v], j}
+        mm_in = _plain_mm(ctx, _back_through_views(ctx, gp[0], interior))
+        if mm_in is None:
+            return None
+        interior.add(mm_in[0])
+        x_v, w_in = mm_in[1].args[:2]
+        weights = (w_in, wd)
+        cols = (gp[1], up[1], gp[2] - gp[1])          # gate start, up start, f
+    elif gp is None and up is None:
+        # separate weights: silu(x @ w_gate) * (x @ w_up)
+        mg = _plain_mm(ctx, _back_through_views(ctx, g_v, interior))
+        mu = _plain_mm(ctx, _back_through_views(ctx, u_v, interior))
+        if mg is None or mu is None or mg[0] == mu[0]:
+            return None
+        x_v, xu = mg[1].args[0], mu[1].args[0]
+        if _back_through_views(ctx, x_v, set()) is not _back_through_views(ctx, xu, set()):
+            return None
+        interior |= {mg[0], mu[0]}
+        weights = (mg[1].args[1], mu[1].args[1], wd)
+        cols = None
+    else:
+        return None
+
+    root = dn.node
+    if ctx.var_dim.get(x_v) != 0 or ctx.var_dim.get(root) != 0:
+        return None   # the kernel chunks rows; anything else keeps the loop
+    dtypes = {vdtype(v) for v in (x_v,) + weights}
+    if len(dtypes) != 1 or vdtype(x_v) not in _KERNEL_DTYPES:
+        return None
+    if not _interior_is_private(ctx, interior, i_dn):
+        return None
+
+    from ..kernels import chunked_ffn as CF
+
+    dtype = vdtype(x_v)
+    d = vshape(x_v)[-1]
+    root_dtype = vdtype(root)
+
+    def launch(env, kw):
+        x = env[x_v]
+        if cols is not None:
+            w_in = env[weights[0]]
+            g0, u0, f = cols
+            wg, wu = w_in[:, g0:g0 + f], w_in[:, u0:u0 + f]   # column views
+        else:
+            wg, wu = env[weights[0]], env[weights[1]]
+        w_down = env[wd]
+        if x.device.type == "meta":
+            return torch.empty((x.shape[0], d), dtype=root_dtype, device="meta")
+        return CF.chunked_ffn(x, wg, wu, w_down).to(root_dtype)
+
+    def extra_bytes(c: int) -> int:
+        # the output is the root's own value; the f32 accumulator comes on top
+        return CF.workspace_bytes(c, d, dtype)
+
+    return Match(kind="swiglu", interior=interior, at=i_dn, root=root,
+                 reads=(x_v,) + weights, launch=launch, extra_bytes=extra_bytes,
+                 root_row_bytes=_row_bytes(ctx, root))
 
 
 # ---------------------------------------------------------------------------
 # Body matching + the pass entry points
 # ---------------------------------------------------------------------------
 
+_MATCHERS = {"_softmax": "attention", "softmax": "attention", "mm": "swiglu"}
+
+
 def match_body(ctx: _BodyCtx, mask_mode: str = "auto") -> List[Match]:
     """All non-overlapping fused-kernel matches in one loop body."""
     found: List[Match] = []
     used: Set[int] = set()
     for i, op in enumerate(ctx.ops):
-        if op_name(op.node) not in _SOFTMAX:
+        kind = _MATCHERS.get(op_name(op.node))
+        if kind is None:
             continue
-        m = _try_attention(ctx, i, mask_mode)
+        m = _try_attention(ctx, i, mask_mode) if kind == "attention" else _try_swiglu(ctx, i)
         if m is None or m.interior & used:
             continue
         used |= m.interior
@@ -716,15 +961,15 @@ def dispatch_graph(g: Graph, *, mask_mode: str = "auto") -> Graph:
 
 def annotate_candidates(g: Graph, cands: Sequence[ChunkCandidate],
                         mask_mode: str = "auto") -> None:
-    """Dispatch-aware selection: set ``kernel_tile_bytes`` on every candidate
-    whose body matches a fused kernel."""
+    """Dispatch-aware selection: set ``kernel_bytes`` (the dispatched body's
+    bytes at chunk c) of every candidate whose body matches a fused kernel."""
     outer = _outer_nodes(g)
     for cand in cands:
-        if not any(op_name(g.nodes[i]) in _SOFTMAX for i in cand.in_loop):
+        if not any(op_name(g.nodes[i]) in _MATCHERS for i in cand.in_loop):
             continue  # nothing the matchers could take
         try:
             matches = match_body(_ctx_from_candidate(g, cand, outer), mask_mode)
         except (LookupError, ValueError, TypeError, IndexError, RuntimeError):
             continue
         if matches:
-            cand.kernel_tile_bytes = sum(m.tile_bytes for m in matches)
+            cand.kernel_bytes = lambda c, ms=tuple(matches): sum(m.body_bytes(c) for m in ms)

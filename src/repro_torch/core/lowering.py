@@ -62,7 +62,7 @@ class KernelDispatch:
     ``root``  the value the kernel's result is bound to
     ``reads`` values the kernel closure reads (kept alive until ``at``)
     ``fn``    ``fn(env) -> value``: computes ``root`` from the environment
-    ``kind``  ``'attention'``
+    ``kind``  ``'attention'`` or ``'swiglu'``
     ``extra_bytes`` device bytes the call allocates besides ``root``
     """
 
@@ -405,11 +405,11 @@ def make_chunk_loop(g: Graph, cand: ChunkCandidate, n_chunks: int) -> ChunkLoopN
         },
     )
     node.params["body_peak"] = _body_peak_bytes(node)
-    if cand.kernel_tile_bytes:
+    if cand.kernel_bytes is not None:
         # dispatch-aware selection marked this body as kernelizable: cap the
         # modeled body peak so the beam's estimate agrees with the one that
         # picked n; the dispatch pass recomputes it from the real skip sets
-        node.params["body_peak"] = min(node.params["body_peak"], int(cand.kernel_tile_bytes))
+        node.params["body_peak"] = min(node.params["body_peak"], cand.kernel_bytes(c))
     return node
 
 

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from torch.fx import Node
 
@@ -57,8 +57,9 @@ class ChunkCandidate:
     static_bytes: int = 0      # full tensors alive while the loop runs
     # set by the kernel-dispatch pass (core.kernel_dispatch) when this
     # candidate's body matches a fused kernel: the body peak the dispatched
-    # loop occupies instead of the full chunk-slice intermediates
-    kernel_tile_bytes: int = 0
+    # loop occupies at slice extent c, instead of the full chunk-slice
+    # intermediates
+    kernel_bytes: Optional[Callable[[int], int]] = None
 
     def divisors(self) -> List[int]:
         """Candidate chunk counts: exact divisors plus powers of two (the
@@ -76,11 +77,11 @@ class ChunkCandidate:
     def chunked_body_peak(self, n: int) -> int:
         c = -(-self.chunk_extent // n)  # ceil slice extent
         scaled = int(self.body_peak_bytes * c / max(self.chunk_extent, 1))
-        if self.kernel_tile_bytes:
+        if self.kernel_bytes is not None:
             # dispatch-aware cost: the fused kernel never materializes the
             # body's chunk-sized intermediates; charge its own bytes, never
             # more than the generic body estimate
-            return min(scaled, self.kernel_tile_bytes)
+            return min(scaled, self.kernel_bytes(c))
         return scaled
 
     def key(self) -> Tuple:

@@ -51,7 +51,7 @@ def chunk_cost(g: Graph, cand: ChunkCandidate, hyper: CostHyper, *,
         cost += hyper.gamma * density_term
     if hyper.use_stride:
         cost += hyper.lam * stride_term
-    if cand.kernel_tile_bytes:
+    if cand.kernel_bytes is not None:
         # the body runs as one fused kernel: prefer the kernelizable region
         cost *= 0.5
     return cost
@@ -137,7 +137,7 @@ def rank_candidates(g: Graph, prof: MemoryProfile, cands: List[ChunkCandidate],
     """Score every candidate; return [(cand, n, est_peak, cost)] best-first.
 
     With ``kernel_dispatch=True`` selection is dispatch-aware: candidates
-    whose body matches a fused kernel get ``kernel_tile_bytes`` set, so they
+    whose body matches a fused kernel get their kernel bytes set, so they
     are charged the kernel's own bytes instead of the chunk-slice
     intermediates it never materializes.
     """

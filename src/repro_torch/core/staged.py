@@ -80,6 +80,8 @@ class AutoChunkResult:
     io_bytes: int
     weight_bytes: int
     elapsed_s: float = 0.0
+    trace_s: float = 0.0              # host seconds of the trace (estimate) pass
+    search_s: float = 0.0             # of search and selection (0 on a replay)
     plan_stages: List[PlanStage] = field(default_factory=list)
     from_cache: bool = False
     cache_key: Optional[str] = None
@@ -148,6 +150,7 @@ def _leaf_sig(x: torch.Tensor) -> Tuple[Tuple[int, ...], str]:
 def _package_result(*, fn: Callable, out_spec_box: List[Any], plan: List[StageRecord],
                     plan_stages: List[PlanStage], baseline_peak: int, final_peak: int,
                     budget_bytes: int, io_bytes: int, weight_bytes: int, elapsed_s: float,
+                    trace_s: float = 0.0, search_s: float = 0.0,
                     from_cache: bool = False, cache_key: Optional[str] = None) -> AutoChunkResult:
     """Wrap a flat callable back into the original pytree signature."""
     flat_fn = fn
@@ -159,8 +162,9 @@ def _package_result(*, fn: Callable, out_spec_box: List[Any], plan: List[StageRe
 
     return AutoChunkResult(fn=wrapped, flat_fn=flat_fn, plan=plan, baseline_peak=baseline_peak,
                            final_peak=final_peak, budget_bytes=budget_bytes, io_bytes=io_bytes,
-                           weight_bytes=weight_bytes, elapsed_s=elapsed_s,
-                           plan_stages=plan_stages, from_cache=from_cache, cache_key=cache_key)
+                           weight_bytes=weight_bytes, elapsed_s=elapsed_s, trace_s=trace_s,
+                           search_s=search_s, plan_stages=plan_stages, from_cache=from_cache,
+                           cache_key=cache_key)
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +277,7 @@ class Traced:
         self.graph.weight_invars = {self.graph.invars[i] for i in self.weight_flat}
         self.profile: MemoryProfile = estimate_memory(self.graph)
         self.trace_s = time.perf_counter() - self._t0
+        self.search_s = 0.0               # set by search(); stays 0 on a replay
         self.baseline_peak: int = self.profile.peak_bytes
         self.budget_bytes: int = config.resolve_budget(self.baseline_peak)
 
@@ -407,7 +412,8 @@ class Planned:
             plan_stages=list(self.plan.stages), baseline_peak=t.baseline_peak,
             final_peak=self.profile.peak_bytes, budget_bytes=t.budget_bytes,
             io_bytes=self.profile.io_bytes, weight_bytes=self.profile.weight_bytes,
-            elapsed_s=time.perf_counter() - t._t0, from_cache=self.from_cache,
+            elapsed_s=time.perf_counter() - t._t0, trace_s=t.trace_s,
+            search_s=t.search_s, from_cache=self.from_cache,
             cache_key=self.plan.cache_key)
         return CompiledFunction(result, bucket_hit=self.bucket_hit)
 

@@ -1,13 +1,14 @@
 """Plain PyTorch oracles for the kernels (the allclose ground truth).
 
 Ports of the JAX package's ``kernels/ref.py`` oracles, same math: f32
-softmax, ``-1e30`` masking.
+softmax, ``-1e30`` masking; the SwiGLU oracle computes in the inputs' type.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -70,3 +71,9 @@ def paged_attention_ref(q, kv_pages, page_table, cu_q_lens, cu_kv_lens):
         a = torch.softmax(logits, dim=-1)
         outs.append(torch.einsum("hqs,shd->qhd", a, v))
     return torch.cat(outs, dim=0).to(q.dtype)
+
+
+def swiglu_ffn_ref(x, w_gate, w_up, w_down):
+    """x: (S,d); w_gate/w_up: (d,f); w_down: (f,d)."""
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    return h @ w_down

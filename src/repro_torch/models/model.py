@@ -73,10 +73,12 @@ def logits_fn(model: Model):
     return fn
 
 
-def _index_tree(tree: ParamTree, i: int) -> Dict[str, Any]:
+def _index_tree(tree: ParamTree, i: Optional[int] = None) -> Dict[str, Any]:
+    """A module tree as a nested dict of its tensors (entry ``i`` of each,
+    for the stacked form)."""
     out: Dict[str, Any] = {}
     for name, p in tree.named_parameters(recurse=False):
-        out[name] = p[i]
+        out[name] = p if i is None else p[i]
     for name, sub in tree.named_children():
         out[name] = _index_tree(sub, i)
     return out
@@ -170,17 +172,57 @@ def embed_inputs(cfg, params, batch: Dict[str, Any]):
 # Full-sequence forward
 # ===========================================================================
 
+# AutoChunk is a first-class config feature: when cfg.autochunk_budget is
+# set, the block function is compiled through the AutoChunk pipeline (keyed
+# by arch and budget, so the search runs once per input shape, not per layer).
+_AC_CACHE: Dict[Any, Any] = {}
+
+
+def _maybe_autochunk(cfg: ModelConfig, tag: str, fn):
+    """The cached ``ChunkedFunction`` of block ``fn`` under ``cfg``'s budget."""
+    from ..core import ChunkConfig, ChunkedFunction
+
+    # one ChunkedFunction per (config, budget, block): it compiles lazily per
+    # input shape and every layer of that shape replays the compiled plan.
+    # The full (frozen, hashable) cfg is part of the key because ``fn``
+    # closes over it: two reduced variants sharing a name must not share it.
+    key = (cfg.name, cfg.autochunk_budget, tag, cfg)
+    if key not in _AC_CACHE:
+        chunk_cfg = ChunkConfig.from_scalar(
+            cfg.autochunk_budget,
+            weight_argnums=(0,),
+            # dim 0 of every activation is the batch axis, as in the JAX package
+            dim_blocklist=(0,),
+        )
+        _AC_CACHE[key] = ChunkedFunction(fn, chunk_cfg)
+    return _AC_CACHE[key]
+
+
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: Model, batch, *, window: Optional[int] = None):
-    """Full-sequence forward, dense families.  Returns (logits, aux_loss)."""
+    """Full-sequence forward, dense families.  Returns (logits, aux_loss).
+
+    With ``cfg.autochunk_budget`` each block runs the AutoChunk plan of one
+    dense block, compiled at the first layer and replayed for the rest.
+    """
     if cfg.family not in DENSE_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} (ROADMAP queue A item 10)")
     h, positions = embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for i in range(cfg.n_layers):
-        h = dense_block_full(cfg, params.layer_params(i), h, positions,
-                             window=window, causal=cfg.causal)
+    if cfg.autochunk_budget:
+        fn = _maybe_autochunk(
+            cfg, f"dense{window}",
+            lambda p, x: dense_block_full(cfg, p, x, window=window, causal=cfg.causal))
+        blocks = params["blocks"]
+        stacked = not isinstance(blocks, nn.ModuleList)
+        for i in range(cfg.n_layers):
+            # the compiler takes a nested dict of tensors, not a module
+            h = fn(_index_tree(blocks, i) if stacked else _index_tree(blocks[i]), h)
+    else:
+        for i in range(cfg.n_layers):
+            h = dense_block_full(cfg, params.layer_params(i), h, positions,
+                                 window=window, causal=cfg.causal)
     h = L.apply_norm(cfg, h, params["final_norm"])
     logits = L.unembed(cfg, params["embed"], h)
     return logits, aux
