@@ -5,7 +5,8 @@
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 with ``nvcc`` (one compiler per source, in parallel) and drives the port's
-three paths, two at gpt-paper's full width and one at minitron-4b's:
+five paths, two at gpt-paper's full width, one at minitron-4b's, one at
+mamba2-1.3b's and one at recurrentgemma-9b's:
 
 * serving: the paged engine, its kernel held against its plain version at
   the serving shapes, the served logits against the dense forward;
@@ -27,7 +28,21 @@ three paths, two at gpt-paper's full width and one at minitron-4b's:
   the same weights against those float32 ones (per block no further than
   1.5 times the unchunked bf16 logits).  ``chunked_ffn`` is then held
   against its plain version at the block's chunk, 2048 and 17 rows, with
-  the fused and the separate weights.
+  the fused and the separate weights;
+* the SSM family: mamba2-1.3b's 48-layer bf16 forward of 8192 tokens, each
+  block's scan on ``ssd_scan``, unchunked and per block with
+  ``autochunk_budget=0.9`` (the scan stays one kernel op in the compiled
+  block); the block's predicted and measured activation peaks, and its
+  peak with the plain SSD swapped in by this script; the logits in float32
+  at 4 layers against those with the plain version swapped in, and the
+  bf16 logits bounded against them;
+* the hybrid family: recurrentgemma-9b's 38-layer bf16 forward of 8192
+  tokens, its 26 RG-LRU layers on ``rglru_scan``, and its float32 logits
+  at 3 layers (two RG-LRU, one local attention) against the plain version.
+  Both scans are first held against their plain versions (mamba2's shape,
+  a length the chunk does not divide, the reduced config's chunk 16, and
+  mamba2's shape again with dt and A drawn as Mamba-2 initialises them;
+  recurrentgemma's shape and an odd length; f32 and bf16 inputs).
 
 Each path runs with the kernels' launch counts zeroed just before and read
 just after.  Every kernel is timed beside its bound, its plain version and
@@ -44,6 +59,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -142,6 +158,15 @@ def time_ms(torch, fn, flush, reps=25):
     return statistics.median(times)
 
 
+def bound(nbytes, ops):
+    """The least time the card could take: the larger of ``nbytes`` over the
+    memory rate and ``ops`` over the bf16 peak, and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops
+                else "operations", bytes=nbytes, operations=ops)
+
+
 # ---------------------------------------------------------------------------
 # The compiler path: autochunk on gpt-paper with the chunked-attention kernels
 # ---------------------------------------------------------------------------
@@ -229,17 +254,23 @@ def check_attention_kernels(torch, CA, cases, errs=None):
 def hold(torch, kname, label, kernel, plain, tol):
     """One kernel call against its plain version, elementwise within
     ``atol + rtol |want|``; prints and returns the max abs error."""
-    atol, rtol = tol
     got = kernel()
     torch.cuda.synchronize()
     want = plain()
     torch.cuda.synchronize()
+    return compare(torch, kname, label, got, want, tol)
+
+
+def compare(torch, kname, label, got, want, tol, why=""):
+    """``got`` against ``want`` elementwise within ``atol + rtol |want|``;
+    prints (with ``why``, the limit's reason) and returns the max abs error."""
+    atol, rtol = tol
     d = (got.float() - want.float()).abs()
     err = float(d.max())
     share = float((d / (atol + rtol * want.float().abs())).max())
     check(bool(torch.isfinite(got).all()), f"{kname} {label}: non-finite")
     print(f"[kernel] {kname} {label}: max_abs_err {err:.3e}, {share:.3f} of the limit"
-          f" {atol:g} + {rtol:g}|want|")
+          f" {atol:g} + {rtol:g}|want|{why}")
     check(share <= 1.0, f"{kname} {label} err {err}")
     return err
 
@@ -395,17 +426,13 @@ def time_attention_kernels(torch, F, CA, chunk, ext, flush, card, *, N=12, group
     for name in names:
         pairs, nbytes, kernel, plain = runs[name]
         ops = 4 * pairs * hd
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
         t = timed[name] = {
             "ms": time_ms(torch, kernel, flush),
             "plain_ms": time_ms(torch, plain, flush),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, attn_mask=mask, scale=scale, enable_gqa=group > 1), flush),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **bound(nbytes, ops),
             "sq": chunk, "skv": ext, "q_offset": off, "heads": H, "kv_heads": N, "hd": hd,
-            "bytes": nbytes, "operations": ops,
         }
         print(f"[time] {name} bf16 (H={H} Kv={N} Sq={chunk} Skv={ext} hd={hd}"
               f" q_offset={off}): kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms"
@@ -603,7 +630,7 @@ def run_block_forward(torch, CA, CF, stats, M, card, attn_errs):
           f" = {L} layers x {loops['attention'][1]} chunks; bf16 logits max |delta| vs"
           f" unchunked {bf16_err:.3e} (bounded against float32 at 4 layers below); {card}")
     del y0, y1
-    trace = device_time_split(torch, per_block, card)
+    trace = device_time_split(torch, per_block, card, "per-block forward", BLOCK_KERNELS)
     del model, p0, h0
     M._AC_CACHE.clear()
     return dict(launches=n_ffn, attention_launches=n_attn, chunk=loops["swiglu"][0],
@@ -614,9 +641,16 @@ def run_block_forward(torch, CA, CF, stats, M, card, attn_errs):
                 trace_s=r.trace_s, search_s=r.search_s, device_ms=trace)
 
 
-def device_time_split(torch, fn, card):
+# kernel-name patterns of the device time split: the per-block path's
+# kernels and the cuBLAS products
+BLOCK_KERNELS = {"chunked_ffn": ("ffn_", "cast_bf16"), "computed_attention": ("chunk_attention",),
+                 "cuBLAS products": ("gemm", "nvjet")}
+
+
+def device_time_split(torch, fn, card, label, groups):
     """Device time of one call by kernel name under ``torch.profiler``
-    (informational; the profiler's host overhead stretches the wall time)."""
+    (informational; the profiler's host overhead stretches the wall time):
+    busy time and the time of each group of kernel-name patterns."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -630,18 +664,15 @@ def device_time_split(torch, fn, card):
             device_us[e.name] += e.time_range.elapsed_us()
     busy = sum(device_us.values()) / 1e3
     if busy == 0:
-        print("[trace] torch.profiler recorded no device time: the per-block forward's"
-              " split is not measured")
+        print(f"[trace] torch.profiler recorded no device time: the {label}'s split is"
+              " not measured")
         return {}
     split = {"busy": busy}
-    for key, pats in (("chunked_ffn", ("ffn_", "cast_bf16")),
-                      ("computed_attention", ("chunk_attention",)),
-                      ("matmul", ("gemm", "nvjet"))):
+    for key, pats in groups.items():
         split[key] = sum(us for n, us in device_us.items()
                          if any(p in n for p in pats)) / 1e3
-    print(f"[trace] per-block forward on the device: busy {busy:.2f} ms; chunked_ffn kernels"
-          f" {split['chunked_ffn']:.2f} ms, computed_attention {split['computed_attention']:.2f}"
-          f" ms, cuBLAS products {split['matmul']:.2f} ms; {card}")
+    parts = ", ".join(f"{k} {v:.2f} ms ({v / busy:.1%})" for k, v in split.items() if k != "busy")
+    print(f"[trace] {label} on the device: busy {busy:.2f} ms; {parts}; {card}")
     for n, us in device_us.most_common(8):
         print(f"[trace]   {us / 1e3:10.3f} ms  {n[:100]}")
     return split
@@ -737,21 +768,390 @@ def time_ffn_kernel(torch, F, CF, cfg, c, flush, card):
     wu, wg = w_in[:, :f], w_in[:, f:]
     nbytes = (3 * d * f + 2 * c * d) * 2          # weights once, x in, out
     ops = 6 * c * d * f
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
     t = {
         "ms": time_ms(torch, lambda: CF.chunked_ffn_fused(x, w_in, wd), flush),
         "plain_ms": time_ms(torch, lambda: CF.chunked_ffn_plain(x, wg, wu, wd), flush),
         "library_ms": time_ms(torch, lambda: (F.silu(x @ wg) * (x @ wu)) @ wd, flush),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "rows": c, "d": d, "f": f, "bytes": nbytes, "operations": ops,
+        **bound(nbytes, ops),
+        "rows": c, "d": d, "f": f,
     }
     print(f"[time] chunked_ffn bf16 (c={c} d={d} f={f}, fused w_in): kernel {t['ms']:.4f} ms,"
           f" bound {t['bound_ms']:.4f} ms ({t['bound_by']}; {nbytes} B, {ops} ops), plain"
           f" {t['plain_ms']:.4f} ms, cuBLAS chain {t['library_ms']:.4f} ms,"
           f" {t['bound_ms'] / t['ms']:.1%} of bound; {card}")
     return t
+
+
+# ---------------------------------------------------------------------------
+# The SSM and hybrid paths: mamba2-1.3b's forward on ssd_scan, and
+# recurrentgemma-9b's on rglru_scan
+# ---------------------------------------------------------------------------
+
+SSM_RUN = dict(arch="mamba2-1.3b", seq_len=8192,
+               # the loosest round ratio whose block plan chunks something
+               # (the port estimator on meta: 2 stages, 473 -> 403 MiB)
+               budget=0.9,
+               # depth of the float32 and bf16 checks
+               check_layers=4)
+HYBRID_RUN = dict(arch="recurrentgemma-9b", seq_len=8192,
+                  # two RG-LRU layers and one local attention
+                  check_layers=3)
+UNIT_ROUNDOFF = 2.0 ** -24       # float32
+SSM_KERNELS = {"ssd_scan": ("ssd_scan_kernel",), "cuBLAS products": ("gemm", "nvjet")}
+HYBRID_KERNELS = {"rglru_scan": ("rglru_scan_kernel",), "cuBLAS products": ("gemm", "nvjet")}
+
+
+def scan_tol(dt_name, terms, want):
+    """The f32 limit of a scan: 2 * terms * u * max|want| (u = 2^-24), the
+    worst-case rounding, in each of the two implementations, of a result
+    made of ``terms`` roundings the size of the largest output.  bf16
+    outputs add the bf16 limit of PERF.md section 2 (one unit in the last
+    place)."""
+    f32 = 2 * terms * UNIT_ROUNDOFF * float(want.float().abs().max())
+    why = f"2 x {terms:.0f} x u x max|want|"
+    if dt_name == "float32":
+        return (f32, 0.0), f" ({why})"
+    atol, rtol = TOL["bfloat16"]
+    return (atol + f32, rtol), f" ({atol:g} + {why})"
+
+
+def chunk_cumsums(torch, dt, A, q):
+    """(max |a_cum|, max exp(a_end)) of an SSD call: a_cum is the cumulative
+    sum of A * dt within each chunk of q rows, a_end its last row.  Both
+    versions take exp of differences of such sums, whose f32 rounding is a
+    relative error of about u |a_cum| on each decay factor; exp(a_end) is
+    the weight with which the carried state reaches the next chunk."""
+    s = dt.shape[1]
+    a = torch.nn.functional.pad(A * dt, (0, 0, 0, (-s) % q))
+    a_cum = a.reshape(a.shape[0], -1, q, a.shape[2]).cumsum(2)
+    return float(a_cum.abs().max()), float(torch.exp(a_cum[:, :, -1]).max())
+
+
+def ssd_needed_ops(b, s, h, p, n, q):
+    """Operations the SSD function needs: C Bᵀ once per (b, chunk) (B and C
+    are one per sequence, shared by the heads: 2Q²N), then per (b, h, chunk)
+    the scores times x (2Q²P), the inter-chunk term and the state update
+    (2QNP each).  The kernel recomputes C Bᵀ per head (``SS.flops``)."""
+    nc = -(-s // q)
+    return float(b * nc * 2 * q * q * n + b * h * nc * (2 * q * q * p + 4 * q * n * p))
+
+
+def ssd_case(torch, b, s, h, p, n, dtype, seed, init="wide"):
+    """Inputs shaped as the SSM block hands them over: x, B and C column
+    views of one silu'd (b, s, h*p + 2n) conv output, dt after softplus in
+    f32.  ``init="wide"``: dt = softplus(N(0, 1) - 1), A = -exp(U(0, 2)),
+    whose chunk decays exp(a_end) are far below f32's reach at chunk 128.
+    ``init="mamba2"``: Mamba-2's published initialisation (arXiv:2405.21060),
+    dt log-uniform in [1e-3, 1e-1] and A = -U(1, 16), so that the carried
+    state reaches the next chunk with a weight f32 can see."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    di = h * p
+    conv = torch.nn.functional.silu(
+        torch.randn((b, s, di + 2 * n), generator=g, device="cuda")).to(dtype)
+    if init == "mamba2":
+        u = torch.rand((b, s, h), generator=g, device="cuda")
+        dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+        A = -(1.0 + 15.0 * torch.rand((h,), generator=g, device="cuda"))
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, s, h), generator=g, device="cuda") - 1.0)
+        A = -torch.exp(torch.rand((h,), generator=g, device="cuda") * 2.0)
+    return (conv[..., :di].reshape(b, s, h, p), dt, A, conv[..., di:di + n],
+            conv[..., di + n:])
+
+
+def check_ssd_kernel(torch, SS, cases, card):
+    """The kernel against its plain version on the card: y and the final
+    state, x/B/C in f32 and in bf16 (dt f32), for cases (b, s, h, p, n,
+    chunk, init) with ``init`` as in :func:`ssd_case`.  Returns max errors
+    by dtype."""
+    errs = {}
+    for dt_name in ("float32", "bfloat16"):
+        for i, (b, s, h, p, n, q, init) in enumerate(cases):
+            x, dt, A, B, C = ssd_case(torch, b, s, h, p, n, getattr(torch, dt_name), 300 + i,
+                                      init)
+            y, st = SS.ssd_scan(x, dt, A, B, C, chunk=q)
+            torch.cuda.synchronize()
+            y0, st0 = SS.ssd_scan_plain(x, dt, A, B, C, min(q, s))
+            torch.cuda.synchronize()
+            acum, carry = chunk_cumsums(torch, dt, A, min(q, s))
+            label = (f"{dt_name} {init} b={b} s={s} h={h} p={p} n={n} chunk={q}"
+                     f" max|a_cum|={acum:.1f} max exp(a_end)={carry:.3e}")
+            # a y element sums q intra-chunk and n inter-chunk terms, each
+            # under a decay factor exp(a_cum[i] - a_cum[j]) whose exponent
+            # carries the cumulative sums' rounding; the state likewise
+            terms = q + n + acum
+            tol, why = scan_tol(dt_name, terms, y0)
+            err = compare(torch, "ssd_scan", f"y {label}", y, y0, tol, f"{why}; {card}")
+            tol, why = scan_tol("float32", terms, st0)
+            err_st = compare(torch, "ssd_scan", f"state {label}", st, st0, tol, f"{why}; {card}")
+            errs[dt_name] = max(errs.get(dt_name, 0.0), err)
+            errs["state"] = max(errs.get("state", 0.0), err_st)
+            del x, dt, A, B, C, y, st, y0, st0
+    return errs
+
+
+def check_rglru_kernel(torch, RS, shapes, card):
+    """The kernel against its plain version on the card, f32 and bf16 a and
+    b (the output is f32 either way): both round the product before the
+    sum, so they agree bit for bit; the limit is PERF.md's f32 one."""
+    errs = {}
+    for dt_name in ("float32", "bfloat16"):
+        for i, (B, S, D) in enumerate(shapes):
+            g = torch.Generator(device="cuda").manual_seed(400 + i)
+            a = torch.sigmoid(torch.randn((B, S, D), generator=g, device="cuda") + 2.0)
+            b = torch.randn((B, S, D), generator=g, device="cuda") * 0.3
+            a, b = a.to(getattr(torch, dt_name)), b.to(getattr(torch, dt_name))
+            h = RS.rglru_scan(a, b)
+            torch.cuda.synchronize()
+            h0 = RS.rglru_scan_plain(a, b)
+            check(h.dtype == torch.float32, f"rglru_scan returned {h.dtype}")
+            err = compare(torch, "rglru_scan", f"{dt_name} B={B} S={S} D={D}", h, h0,
+                          TOL["float32"], f"; bit-equal {torch.equal(h, h0)}; {card}")
+            errs[dt_name] = max(errs.get(dt_name, 0.0), err)
+            del a, b, h, h0
+    return errs
+
+
+def run_plain(SS, RS, fn, *args):
+    """``fn(*args)`` with each scan's plain version put where the models call
+    the kernel op (this script's comparisons; the package has no switch)."""
+    kernels = (SS.ssd_scan, RS.rglru_scan)
+    SS.ssd_scan = lambda x, dt, A, B, C, *, chunk=128: SS.ssd_scan_plain(
+        x, dt, A, B, C, min(chunk, x.shape[1]))
+    RS.rglru_scan = lambda a, b, *, chunk=256: RS.rglru_scan_plain(a, b)
+    try:
+        return fn(*args)
+    finally:
+        SS.ssd_scan, RS.rglru_scan = kernels
+
+
+def run_ssm_forward(torch, SS, RS, stats, M, card):
+    """mamba2-1.3b at full width and depth (48 layers, bf16, S 8192): the
+    unchunked forward and the per-block forward under SSM_RUN's budget,
+    each with the launch count zeroed just before and read just after; one
+    block's measured peaks against the predicted ones; one block with the
+    plain version swapped in; the device time split."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.graph import op_name
+
+    cfg = get_config(SSM_RUN["arch"])
+    cfg_ac = cfg.with_(autochunk_budget=SSM_RUN["budget"])
+    S, L = SSM_RUN["seq_len"], cfg.n_layers
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(8), device="cuda")
+    batch = {"tokens": torch.tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (1, S)), device="cuda")}
+
+    def unchunked():
+        return M.forward(cfg, model, batch)[0]
+
+    def per_block():
+        return M.forward(cfg_ac, model, batch)[0]
+
+    unchunked()                                           # warm-up
+    SS.ssd_scan.launches = 0
+    y0, peak0, ms0 = measure_forward(torch, unchunked, ())
+    n0 = SS.ssd_scan.launches
+    check(n0 == L, f"unchunked mamba2 forward: ssd_scan launched {n0} times, want {L}")
+    check(bool(torch.isfinite(y0[..., :cfg.vocab_size]).all()), "non-finite mamba2 logits")
+
+    M._AC_CACHE.clear()
+    before = stats.snapshot()
+    t0 = time.perf_counter()
+    y = per_block()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    d = stats.delta(before)
+    del y
+    (cf,) = M._AC_CACHE.values()
+    r = cf.autochunk_result
+    check(cf.counters["compiles"] == 1 and cf.counters["shape_hits"] == L - 1,
+          f"first per-block forward: {cf.stats()}, want 1 compile and {L - 1} replays")
+    check(d["plan_bucket_misses"] == 1, f"{d['plan_bucket_misses']} bucket misses, want 1")
+    check(r.plan, "the block plan chunks nothing")
+    print(f"[ssm] mamba2-1.3b L={L} d={cfg.d_model} H={cfg.ssm_heads} P={cfg.ssm_head_dim}"
+          f" N={cfg.ssm_state} chunk={cfg.ssm_chunk} {cfg.dtype} S={S} budget"
+          f" {SSM_RUN['budget']}: first per-block forward {first_s:.2f}s, one block compile"
+          f" (host seconds trace {r.trace_s:.2f}, search {r.search_s:.2f}, compile"
+          f" {r.elapsed_s - r.trace_s - r.search_s:.2f}; {d['search_passes']} search passes),"
+          f" {len(r.plan)} stages, {cf.counters['compiles']} search and"
+          f" {cf.counters['shape_hits']} replays; predicted block peak {r.baseline_peak} B ->"
+          f" {r.final_peak} B (budget {r.budget_bytes} B, {r.reduction:.1%} reduction); {card}")
+    for line in r.report().splitlines()[6:]:
+        print(f"[ssm] {line.strip()}")
+
+    # the bucket's plan replayed on layer 0: the scan is one op node in it
+    p0 = M._index_tree(model["blocks"], 0)
+    h0 = M.embed_inputs(cfg, model, batch)[0]
+    before = stats.snapshot()
+    planned = cf.trace(p0, h0).search()
+    check(stats.delta(before)["search_passes"] == 0, "the replay searched")
+    n_ops = sum(op_name(n) == "ssd_scan" for n in planned.graph.nodes)
+    check(n_ops == 1, f"{n_ops} ssd_scan nodes in the compiled block, want 1")
+    del planned
+
+    # one block's activation peak: unchunked, chunked, and the plain version
+    def block(p, x):
+        return M.ssm_block_full(cfg, p, x)
+
+    with torch.no_grad():
+        block(p0, h0)
+        _, bpeak0, bms0 = measure_forward(torch, block, (p0, h0))
+        _, bpeak1, bms1 = measure_forward(torch, cf, (p0, h0))
+        _, bpeak_p, bms_p = run_plain(SS, RS, measure_forward, torch, block, (p0, h0))
+    print(f"[ssm] layer 0 activation peak: unchunked {bpeak0} B (predicted {r.baseline_peak} B,"
+          f" {bpeak0 / r.baseline_peak:.4f}x), chunked {bpeak1} B (predicted {r.final_peak} B,"
+          f" {bpeak1 / r.final_peak:.4f}x); the unchunked block with the plain SSD swapped in"
+          f" {bpeak_p} B ({bpeak_p / bpeak0:.2f}x the kernel's); time unchunked {bms0:.2f} ms,"
+          f" chunked {bms1:.2f} ms, plain {bms_p:.2f} ms; {card}")
+    check(abs(bpeak1 - r.final_peak) <= 0.05 * r.final_peak,
+          f"chunked block peak {bpeak1} B is not within 5% of the predicted {r.final_peak} B")
+
+    hits = cf.counters["shape_hits"]
+    before = stats.snapshot()
+    SS.ssd_scan.launches = 0
+    y1, peak1, ms1 = measure_forward(torch, per_block, ())
+    n1 = SS.ssd_scan.launches
+    d = stats.delta(before)
+    check(d["search_passes"] == 0 and cf.counters["shape_hits"] - hits == L,
+          f"second per-block forward: {d['search_passes']} search passes,"
+          f" {cf.counters['shape_hits'] - hits} replays")
+    check(n1 == L, f"per-block mamba2 forward: ssd_scan launched {n1} times, want {L}")
+    check(bool(torch.isfinite(y1[..., :cfg.vocab_size]).all()), "non-finite per-block logits")
+    bf16_err = max_logit_err(y1, y0, cfg.vocab_size)
+    print(f"[forward] mamba2-1.3b: whole-forward peak unchunked {peak0} B, per block {peak1} B;"
+          f" time unchunked {ms0:.2f} ms, per block {ms1:.2f} ms; ssd_scan launches {n0}"
+          f" unchunked, {n1} per block = {L} layers x 1; bf16 logits max |delta| per block vs"
+          f" unchunked {bf16_err:.3e}; {card}")
+    del y0, y1
+    trace = device_time_split(torch, unchunked, card, "mamba2-1.3b unchunked forward",
+                              SSM_KERNELS)
+    del model, p0, h0, cf
+    M._AC_CACHE.clear()
+    return dict(launches=n0, per_block_launches=n1, stages=len(r.plan),
+                pred_block0=r.baseline_peak, pred_block1=r.final_peak, block_peak0=bpeak0,
+                block_peak1=bpeak1, block_peak_plain=bpeak_p, peak0=peak0, peak1=peak1,
+                ms0=ms0, ms1=ms1, bf16_logits_err=bf16_err, trace_s=r.trace_s,
+                search_s=r.search_s, device_ms=trace)
+
+
+def check_logits_against_plain(torch, SS, RS, M, arch, layers, seed, card, *, bf16):
+    """At full width, ``layers`` deep, S 8192: the float32 logits with the
+    kernels against those with the plain versions swapped in (1e-3).  With
+    ``bf16``, also the bf16 logits of the same weights (``init_params``
+    draws in f32 and rounds) against the float32 plain ones: with the
+    kernels no further than 1.5 times the plain bf16 logits are."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).with_(dtype="float32", n_layers=layers)
+    S = SSM_RUN["seq_len"]
+    batch = {"tokens": torch.tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, S)), device="cuda")}
+
+    def logits(c):
+        model = M.init_params(c, torch.Generator(device="cuda").manual_seed(seed),
+                              device="cuda")
+        y = M.forward(c, model, batch)[0]
+        yp = run_plain(SS, RS, M.forward, c, model, batch)[0]
+        return y, yp
+
+    y32, y32p = logits(cfg)
+    err = max_logit_err(y32, y32p, cfg.vocab_size)
+    print(f"[forward] {arch} fp32 L={layers} S={S}: logits with the kernels vs the plain"
+          f" versions swapped in max_abs_err {err:.3e} (limit 1e-3); {card}")
+    check(err <= 1e-3, f"{arch} fp32 logits differ from the plain versions' by {err}")
+    out = dict(fp32_logits_err=err)
+    del y32
+    if bf16:
+        y16, y16p = logits(cfg.with_(dtype="bfloat16"))
+        err_k = max_logit_err(y16, y32p, cfg.vocab_size)
+        err_p = max_logit_err(y16p, y32p, cfg.vocab_size)
+        print(f"[forward] {arch} bf16 L={layers} S={S} against the float32 logits of the same"
+              f" weights: with the kernels max_abs_err {err_k:.3e}, plain versions"
+              f" {err_p:.3e} ({err_k / err_p:.3f}x; limit 1.5x); {card}")
+        check(err_k <= 1.5 * err_p, f"{arch} bf16 logits stray {err_k} from float32, the"
+              f" plain versions' {err_p}")
+        out.update(bf16_vs_fp32_kernel=err_k, bf16_vs_fp32_plain=err_p)
+        del y16, y16p
+    del y32p
+    return out
+
+
+def run_hybrid_forward(torch, RS, M, card):
+    """recurrentgemma-9b at full width and depth (38 layers, bf16, S 8192):
+    the forward with the launch count zeroed just before and read just
+    after, its RG-LRU layers on ``rglru_scan``; the device time split."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(HYBRID_RUN["arch"])
+    S, L = HYBRID_RUN["seq_len"], cfg.n_layers
+    n_rg = sum(not cfg.is_attention_layer(i) for i in range(L))
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(9), device="cuda")
+    batch = {"tokens": torch.tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (1, S)), device="cuda")}
+
+    def fwd():
+        return M.forward(cfg, model, batch)[0]
+
+    fwd()                                                 # warm-up
+    RS.rglru_scan.launches = 0
+    y, peak, ms = measure_forward(torch, fwd, ())
+    n = RS.rglru_scan.launches
+    check(n == n_rg, f"recurrentgemma forward: rglru_scan launched {n} times, want {n_rg}")
+    check(bool(torch.isfinite(y[..., :cfg.vocab_size]).all()), "non-finite hybrid logits")
+    n_params = sum(t.numel() for t in model.parameters())
+    print(f"[forward] recurrentgemma-9b L={L} ({n_rg} RG-LRU, {L - n_rg} local attention)"
+          f" d={cfg.d_model} {cfg.dtype} S={S}, {n_params} parameters: time {ms:.2f} ms,"
+          f" activation peak {peak} B; rglru_scan launches {n} = {n_rg} RG-LRU layers x 1;"
+          f" {card}")
+    del y
+    trace = device_time_split(torch, fwd, card, "recurrentgemma-9b forward", HYBRID_KERNELS)
+    del model
+    return dict(launches=n, ms=ms, peak=peak, device_ms=trace)
+
+
+def time_scans(torch, SS, RS, flush, card):
+    """Each scan at its model's shape, CUDA-event medians with L2 flushed,
+    beside its bound and its plain version (no one PyTorch call computes
+    either function, so there is no library time)."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    mcfg = get_config(SSM_RUN["arch"])
+    b, s, h, p, n, q = (1, SSM_RUN["seq_len"], mcfg.ssm_heads, mcfg.ssm_head_dim,
+                        mcfg.ssm_state, mcfg.ssm_chunk)
+    x, dt, A, B, C = ssd_case(torch, b, s, h, p, n, torch.bfloat16, seed=7)
+    nbytes = (2 * b * s * h * p * 2 + b * s * h * 4 + 2 * b * s * n * 2 + h * 4
+              + b * h * p * n * 4)                 # x and y, dt, B and C, A, state
+    ops = ssd_needed_ops(b, s, h, p, n, q)
+    out["ssd_scan"] = dict(
+        ms=time_ms(torch, lambda: SS.ssd_scan(x, dt, A, B, C, chunk=q), flush),
+        plain_ms=time_ms(torch, lambda: SS.ssd_scan_plain(x, dt, A, B, C, q), flush),
+        library_ms=None, shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=q, dtype="bfloat16"),
+        **bound(nbytes, ops))
+    del x, dt, A, B, C
+    Bn, S, D = 1, HYBRID_RUN["seq_len"], get_config(HYBRID_RUN["arch"]).d_model
+    g = torch.Generator(device="cuda").manual_seed(7)
+    a = torch.sigmoid(torch.randn((Bn, S, D), generator=g, device="cuda") + 2.0)
+    bb = torch.randn((Bn, S, D), generator=g, device="cuda") * 0.3
+    out["rglru_scan"] = dict(
+        ms=time_ms(torch, lambda: RS.rglru_scan(a, bb), flush),
+        plain_ms=time_ms(torch, lambda: RS.rglru_scan_plain(a, bb), flush, reps=5),
+        library_ms=None, shape=dict(B=Bn, S=S, D=D, dtype="float32"),
+        **bound(3 * Bn * S * D * 4, 2 * Bn * S * D))
+    del a, bb
+    for name, t in out.items():
+        print(f"[time] {name} {t['shape']}: kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f}"
+              f" ms ({t['bound_by']}; {t['bytes']} B, {t['operations']:.0f} ops), plain"
+              f" {t['plain_ms']:.4f} ms, library: none in one call,"
+              f" {t['bound_ms'] / t['ms']:.1%} of bound; {card}")
+    return out
 
 
 def main() -> int:
@@ -791,7 +1191,7 @@ def main() -> int:
         t0 = time.perf_counter()
         return build.build(name), time.perf_counter() - t0
 
-    sources = ("paged_attention", "chunked_attention", "chunked_ffn")
+    sources = ("paged_attention", "chunked_attention", "chunked_ffn", "ssd_scan", "rglru_scan")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = dict(zip(sources, pool.map(timed_build, sources)))
     for name, (log, seconds) in builds.items():
@@ -966,7 +1366,6 @@ def main() -> int:
         q, pages, table, q_lens, kv_lens = args = cases[(name, "bfloat16")]
         nbytes, ops = work(shp["q_lens"], shp["kv_lens"], shp["H"], shp["Kv"], shp["hd"],
                            table.shape[1], 2)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
         # the library yardstick: SDPA on the gathered dense KV with the
         # same ragged causal mask
         S, q_max, H, hd = q.shape
@@ -984,9 +1383,8 @@ def main() -> int:
             "plain_ms": time_ms(torch, lambda: PA.paged_attention_blocked_plain(*args), flush),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qd, kd, vd, attn_mask=mask, enable_gqa=True), flush),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "q_max": q_max, "bytes": nbytes, "operations": ops,
+            **bound(nbytes, ops),
+            "q_max": q_max,
         }
         t = timed[name]
         print(f"[time] paged_attention {name} bf16 (S={S} q_max={q_max} H={H} hd={hd}):"
@@ -1037,13 +1435,56 @@ def main() -> int:
     mcfg = get_config(BLOCK["arch"])
     ffn_err = check_ffn_kernel(torch, CF, mcfg, (block["chunk"],) + FFN_ROWS)
     ffn_timed = time_ffn_kernel(torch, F, CF, mcfg, block["chunk"], flush, card)
+    del mcfg
 
-    # ---- 14. kernels lines and the result --------------------------------
+    # ---- 14. the scan kernels against their plain versions ---------------
+    # mamba2's full shape, a length the chunk does not divide, the reduced
+    # config's chunk 16, and the full shape with Mamba-2's own dt and A
+    # (where the carried state's weight exp(a_end) is visible in f32);
+    # recurrentgemma's shape and an odd length
+    from repro_torch.kernels import rglru_scan as RS
+    from repro_torch.kernels import ssd_scan as SS
+
+    torch.cuda.empty_cache()
+    scfg, hcfg = get_config(SSM_RUN["arch"]), get_config(HYBRID_RUN["arch"])
+    full = (scfg.ssm_heads, scfg.ssm_head_dim, scfg.ssm_state)
+    red = scfg.reduced()
+    ssd_err = check_ssd_kernel(torch, SS, [
+        (1, SSM_RUN["seq_len"], *full, scfg.ssm_chunk, "wide"),
+        (1, 1000, *full, scfg.ssm_chunk, "wide"),
+        (2, 100, red.ssm_heads, red.ssm_head_dim, red.ssm_state, red.ssm_chunk, "wide"),
+        (1, SSM_RUN["seq_len"], *full, scfg.ssm_chunk, "mamba2")], card)
+    rglru_err = check_rglru_kernel(torch, RS, [(1, HYBRID_RUN["seq_len"], hcfg.d_model),
+                                               (1, 1001, hcfg.d_model)], card)
+
+    # ---- 15. mamba2-1.3b at full width: unchunked and per block ----------
+    # counts zeroed just before each forward and read just after; then the
+    # float32 and bf16 checks against the plain version at 4 layers
+    ssm = run_ssm_forward(torch, SS, RS, stats, M, card)
+    torch.cuda.empty_cache()
+    ssm.update(check_logits_against_plain(torch, SS, RS, M, SSM_RUN["arch"],
+                                          SSM_RUN["check_layers"], 10, card, bf16=True))
+    torch.cuda.empty_cache()
+
+    # ---- 16. recurrentgemma-9b at full width (the earlier models freed) --
+    hyb = run_hybrid_forward(torch, RS, M, card)
+    torch.cuda.empty_cache()
+    hyb.update(check_logits_against_plain(torch, SS, RS, M, HYBRID_RUN["arch"],
+                                          HYBRID_RUN["check_layers"], 11, card, bf16=False))
+    torch.cuda.empty_cache()
+
+    # ---- 17. the scans' times at their models' shapes ---------------------
+    scan_timed = time_scans(torch, SS, RS, flush, card)
+
+    # ---- 18. kernels lines and the result --------------------------------
     launch_counts = {"paged_attention": launches,
                      "computed_attention": fwd["auto"]["launches"],
                      "masked_attention": fwd["bool"]["launches"],
-                     "chunked_ffn": block["launches"]}
-    errs = {"paged_attention": max_err, "chunked_ffn": ffn_err}
+                     "chunked_ffn": block["launches"],
+                     "ssd_scan": ssm["launches"],
+                     "rglru_scan": hyb["launches"]}
+    errs = {"paged_attention": max_err, "chunked_ffn": ffn_err, "ssd_scan": ssd_err,
+            "rglru_scan": rglru_err}
     for (kname, dt_name), err in attn_err.items():
         errs.setdefault(kname, {})[dt_name] = err
     print("kernels: " + json.dumps([{"name": k, "launches": n,
@@ -1099,6 +1540,22 @@ def main() -> int:
         "shape": {k: ffn_timed[k] for k in ("rows", "d", "f", "bytes", "operations")},
         "forward": block,
     })
+    for kname, line, run in (("ssd_scan", 78, ssm), ("rglru_scan", 49, hyb)):
+        t = scan_timed[kname]
+        entries.append({
+            "name": kname,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
+            "replaces": f"src/repro/kernels/{kname}.py:{line}",
+            "launches": launch_counts[kname],
+            "max_abs_err": errs[kname]["bfloat16"],
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "max_err_bf16": errs[kname]["bfloat16"],
+            "max_err_fp32": errs[kname]["float32"],
+            "shape": dict(t["shape"], bytes=t["bytes"], operations=t["operations"]),
+            "forward": run,
+        })
+    entries[-2]["max_err_state_fp32"] = ssd_err["state"]
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

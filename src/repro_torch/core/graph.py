@@ -30,6 +30,7 @@ from torch.fx import Node
 from torch.fx.experimental.proxy_tensor import make_fx
 from torch.utils import _pytree as pytree
 
+from ..kernels import OP_FLOPS
 from . import stats
 
 
@@ -216,6 +217,9 @@ def _node_flops(node: Node) -> float:
     if name in ("mm", "bmm", "addmm", "baddbmm"):
         a = node.args[1] if name in ("addmm", "baddbmm") else node.args[0]
         return 2.0 * _numel(node) * vshape(a)[-1]
+    if name in OP_FLOPS:            # a kernel op counts its own work
+        return OP_FLOPS[name](*(a.meta["val"] if isinstance(a, Node) else a
+                                for a in node.args))
     if name in ("sum", "mean", "amax", "amin", "argmax", "argmin"):
         return float(_numel(node.args[0]))
     return float(_numel(node))

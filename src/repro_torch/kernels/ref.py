@@ -77,3 +77,38 @@ def swiglu_ffn_ref(x, w_gate, w_up, w_down):
     """x: (S,d); w_gate/w_up: (d,f); w_down: (f,d)."""
     h = F.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
+
+
+def ssd_ref(x, dt, A, B, C, chunk: int):
+    """The chunked SSD, i.e. the SSD kernel's plain version (a port of the
+    JAX package's ``ssd_chunked``, itself held against the sequential
+    recurrence in the tests).  Returns (y, final state)."""
+    from .ssd_scan import ssd_scan_plain
+
+    return ssd_scan_plain(x, dt, A, B, C, chunk)
+
+
+def ssd_sequential_ref(x, dt, A, B, C):
+    """O(S) sequential recurrence: the most literal SSD definition.
+    Returns (y in x's dtype, final state (b,h,p,n) f32)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        da = torch.exp(A.float()[None, :] * dtf[:, t])                       # (b,h)
+        upd = torch.einsum("bh,bhp,bn->bhpn", dtf[:, t], xf[:, t], Bf[:, t])
+        state = da[:, :, None, None] * state + upd
+        ys.append(torch.einsum("bn,bhpn->bhp", Cf[:, t], state))
+    return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def rglru_ref(a, b):
+    """h_t = a_t * h_{t-1} + b_t in f32; a, b: (B,S,D).  A sequential f32
+    loop over S (torch has no stable associative scan; the JAX oracle's
+    log-depth scan sums in another order), i.e. the RG-LRU kernel's plain
+    version."""
+    from .rglru_scan import rglru_scan_plain
+
+    return rglru_scan_plain(a, b)

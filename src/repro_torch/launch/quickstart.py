@@ -8,8 +8,10 @@ sequence of ``--seq-len`` tokens, prints the compilation report, runs the
 chunked and the unchunked forward, and prints the largest difference of
 their logits.  It runs on the CUDA device by default, where the attention
 sites run the fused CUDA kernels; ``--device cpu`` runs the plain PyTorch
-versions.  ``--local`` compiles ``reduced()`` of the config with 2 layers in
-float32 (default 1024 tokens).
+versions.  ``--arch mamba2-1.3b`` compiles the SSM forward: each block's
+scan stays one ``ssd_scan`` kernel op in the compiled graph.  ``--local``
+compiles ``reduced()`` of the config with 2 layers in float32 (default
+1024 tokens).
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Model assembly, dense subset: init and full-sequence forward.
+"""Model assembly: init and full-sequence forward of the dense, SSM and
+hybrid families.
 
 Parameters live in a :class:`Model` (an ``nn.Module``) whose ``state_dict``
 keys follow the JAX package's pytree paths: ``blocks.0.attn.wq`` for the
@@ -17,8 +18,15 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import layers as L
+from . import rglru as RG
+from . import ssm as SSM
 
 DENSE_FAMILIES = ("dense", "vlm", "encoder", "audio")
+FAMILIES = DENSE_FAMILIES + ("ssm", "hybrid")
+# recurrentgemma's local attention has head dim 256; the attention kernel
+# the compiled block would dispatch to has instances at 32, 64 and 128 only
+HYBRID_BUDGET_TODO = ("the hybrid family under autochunk_budget: its attention at head dim"
+                      " 256 has no attention kernel instance (ROADMAP queue A item 10)")
 
 
 class ParamTree(nn.Module):
@@ -44,7 +52,7 @@ class ParamTree(nn.Module):
 
 
 class Model(ParamTree):
-    """A dense decoder's parameters; ``model(tokens)`` runs :func:`forward`."""
+    """A model's parameters; ``model(tokens)`` runs :func:`forward`."""
 
     def __init__(self, cfg: ModelConfig, tree: Mapping[str, Any]):
         super().__init__(tree)
@@ -97,6 +105,20 @@ def dense_block_params(cfg, gen, *, device, d_ff=None):
     }
 
 
+def ssm_block_params(cfg, gen, *, device):
+    return {"ln1": L.norm_params(cfg, cfg.d_model, device=device),
+            "ssm": SSM.ssm_params(cfg, gen, device=device)}
+
+
+def rg_block_params(cfg, gen, *, device):
+    return {
+        "ln1": L.norm_params(cfg, cfg.d_model, device=device),
+        "ln2": L.norm_params(cfg, cfg.d_model, device=device),
+        "rec": RG.rglru_params(cfg, gen, device=device),
+        "mlp": L.mlp_params(cfg, gen, device=device),
+    }
+
+
 def _stack(trees):
     first = trees[0]
     if isinstance(first, Mapping):
@@ -110,9 +132,9 @@ def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0,
 
     ``generator`` is a ``torch.Generator`` on ``device`` or an int seed.
     """
-    if cfg.family not in DENSE_FAMILIES:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port has the dense families only"
+            f"family {cfg.family!r}: the port has the dense, ssm and hybrid families"
             " (ROADMAP queue A item 10 ports the others)"
         )
     if cfg.mla:
@@ -122,9 +144,16 @@ def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0,
         generator = torch.Generator(device=dev).manual_seed(generator)
     p: Dict[str, Any] = {"embed": L.embed_params(cfg, generator, device=dev)}
     p["final_norm"] = L.norm_params(cfg, cfg.d_model, device=dev)
-    blocks = [dense_block_params(cfg, generator, device=dev)
-              for _ in range(cfg.n_layers)]
-    p["blocks"] = _stack(blocks) if cfg.scan_layers else blocks
+    if cfg.family == "hybrid":
+        # heterogeneous layers: always the list form, as in the JAX package
+        p["blocks"] = [dense_block_params(cfg, generator, device=dev)
+                       if cfg.is_attention_layer(i)
+                       else rg_block_params(cfg, generator, device=dev)
+                       for i in range(cfg.n_layers)]
+    else:
+        block_params = ssm_block_params if cfg.family == "ssm" else dense_block_params
+        blocks = [block_params(cfg, generator, device=dev) for _ in range(cfg.n_layers)]
+        p["blocks"] = _stack(blocks) if cfg.scan_layers else blocks
     return Model(cfg, p)
 
 
@@ -146,6 +175,20 @@ def attn_apply_full(cfg, p, x, positions=None, *, window, causal):
 def dense_block_full(cfg, p, x, positions=None, *, window=None, causal=None):
     causal = cfg.causal if causal is None else causal
     x = attn_apply_full(cfg, p, x, positions, window=window, causal=causal)
+    h = L.apply_norm(cfg, x, p["ln2"])
+    return x + L.mlp(cfg, p["mlp"], h)
+
+
+def ssm_block_full(cfg, p, x):
+    h = L.apply_norm(cfg, x, p["ln1"])
+    y, _ = SSM.ssm_block(cfg, p["ssm"], h)
+    return x + y
+
+
+def rg_block_full(cfg, p, x):
+    h = L.apply_norm(cfg, x, p["ln1"])
+    y, _ = RG.recurrent_block(cfg, p["rec"], h)
+    x = x + y
     h = L.apply_norm(cfg, x, p["ln2"])
     return x + L.mlp(cfg, p["mlp"], h)
 
@@ -198,31 +241,52 @@ def _maybe_autochunk(cfg: ModelConfig, tag: str, fn):
     return _AC_CACHE[key]
 
 
+def _run_blocks(cfg: ModelConfig, params: Model, h, tag: str, block):
+    """``h`` through ``block(p, x)`` at every layer; with
+    ``cfg.autochunk_budget``, through the AutoChunk plan of one block,
+    compiled at the first layer and replayed for the rest."""
+    if not cfg.autochunk_budget:
+        for i in range(cfg.n_layers):
+            h = block(params.layer_params(i), h)
+        return h
+    fn = _maybe_autochunk(cfg, tag, block)
+    blocks = params["blocks"]
+    stacked = not isinstance(blocks, nn.ModuleList)
+    for i in range(cfg.n_layers):
+        # the compiler takes a nested dict of tensors, not a module
+        h = fn(_index_tree(blocks, i) if stacked else _index_tree(blocks[i]), h)
+    return h
+
+
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: Model, batch, *, window: Optional[int] = None):
-    """Full-sequence forward, dense families.  Returns (logits, aux_loss).
+    """Full-sequence forward of the dense, SSM and hybrid families.
+    Returns (logits, aux_loss).
 
-    With ``cfg.autochunk_budget`` each block runs the AutoChunk plan of one
-    dense block, compiled at the first layer and replayed for the rest.
+    With ``cfg.autochunk_budget`` each block of a dense or SSM model runs
+    the AutoChunk plan of one block, compiled at the first layer and
+    replayed for the rest; the SSM block's scan stays one kernel op inside
+    the compiled block.  The hybrid family under a budget raises.
     """
-    if cfg.family not in DENSE_FAMILIES:
+    fam = cfg.family
+    if fam not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} (ROADMAP queue A item 10)")
+            f"family {fam!r} (ROADMAP queue A item 10)")
     h, positions = embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    if cfg.autochunk_budget:
-        fn = _maybe_autochunk(
-            cfg, f"dense{window}",
-            lambda p, x: dense_block_full(cfg, p, x, window=window, causal=cfg.causal))
-        blocks = params["blocks"]
-        stacked = not isinstance(blocks, nn.ModuleList)
-        for i in range(cfg.n_layers):
-            # the compiler takes a nested dict of tensors, not a module
-            h = fn(_index_tree(blocks, i) if stacked else _index_tree(blocks[i]), h)
+    if fam in DENSE_FAMILIES:
+        h = _run_blocks(cfg, params, h, f"dense{window}",
+                        lambda p, x: dense_block_full(cfg, p, x, window=window,
+                                                      causal=cfg.causal))
+    elif fam == "ssm":
+        h = _run_blocks(cfg, params, h, "ssm", lambda p, x: ssm_block_full(cfg, p, x))
     else:
+        if cfg.autochunk_budget:
+            raise NotImplementedError(HYBRID_BUDGET_TODO)
         for i in range(cfg.n_layers):
-            h = dense_block_full(cfg, params.layer_params(i), h, positions,
-                                 window=window, causal=cfg.causal)
+            p = params.layer_params(i)
+            h = (dense_block_full(cfg, p, h, positions, window=cfg.local_window)
+                 if cfg.is_attention_layer(i) else rg_block_full(cfg, p, h))
     h = L.apply_norm(cfg, h, params["final_norm"])
     logits = L.unembed(cfg, params["embed"], h)
     return logits, aux
