@@ -4,19 +4,27 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
-with ``nvcc`` (one compiler per source, in parallel) and drives the port's
-five paths, two at gpt-paper's full width, one at minitron-4b's, one at
-mamba2-1.3b's and one at recurrentgemma-9b's:
+with ``nvcc`` (one compiler per source, in parallel), prints each kernel's
+registers, shared memory and spills (``-Xptxas -v``) and, from
+``cuobjdump -sass``, the tensor-core instructions of the two attention
+libraries (``[route]`` lines; the bf16 ``computed_attention`` kernel must
+have them), and drives the port's five paths, two at gpt-paper's full
+width, one at minitron-4b's, one at mamba2-1.3b's and one at
+recurrentgemma-9b's:
 
 * serving: the paged engine, its kernel held against its plain version at
-  the serving shapes, the served logits against the dense forward;
+  the serving shapes and at edge cases (split decode batches with a row of
+  q_len 0 and splits past kv_len, GQA hd 256), the served tokens' digest
+  beside those served with the plain version swapped in, the served logits
+  against the dense forward;
 * the AutoChunk compiler: the 12-layer bf16 forward of 8192 tokens compiled
   at a 0.2 activation budget, once with the computed-mask attention kernel
   and once with ``mask_mode="bool"`` (the bool-mask kernel); predicted and
   measured activation peaks and times of the chunked and unchunked
   forwards, and chunked against unchunked logits in float32.
   Both attention kernels are then held against their plain versions at the
-  compiled chunk shape (plus a window and a GQA case);
+  compiled chunk shape (plus a window and a GQA case, ragged Sq and Skv,
+  hd 32, and a window whose first rows see no live key);
 * per-block AutoChunk inside the model forward: minitron-4b's 32-layer bf16
   forward of 8192 tokens with ``autochunk_budget=0.04``, one dense block
   compiled at the first layer and replayed for the other 31, its attention
@@ -57,9 +65,12 @@ The last two lines of standard output are the kernels' JSON line and
 from __future__ import annotations
 
 import collections
+import hashlib
 import concurrent.futures
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -88,6 +99,12 @@ def fail(msg: str) -> None:
 def check(cond, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def token_digest(reqs) -> str:
+    """The first 16 hex digits of a sha256 over every request's generated
+    tokens, in request order."""
+    return hashlib.sha256(json.dumps([r.generated for r in reqs]).encode()).hexdigest()[:16]
 
 
 def card_line() -> str:
@@ -167,6 +184,155 @@ def bound(nbytes, ops):
                 else "operations", bytes=nbytes, operations=ops)
 
 
+def demangle(names):
+    """C++ names as ``c++filt`` prints them (unchanged where it is missing)."""
+    if not names or not shutil.which("c++filt"):
+        return list(names)
+    out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True,
+                         timeout=60)
+    return out.stdout.splitlines() if out.returncode == 0 else list(names)
+
+
+def ptxas_report(name, log):
+    """Each kernel's registers, shared memory and spills from ``-Xptxas -v``."""
+    entries, fn = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+        elif fn and ("spill stores" in line or "registers" in line):
+            entries.append((fn, line.split(":", 1)[-1].strip()))
+    names = dict(zip(sorted({f for f, _ in entries}), demangle(sorted({f for f, _ in entries}))))
+    for fn, what in entries:
+        print(f"[build] {name}: {names[fn][:90]}: {what}")
+
+
+def tool(name):
+    """A CUDA toolkit binary: on PATH or under /usr/local/cuda/bin."""
+    found = shutil.which(name) or (f"/usr/local/cuda/bin/{name}"
+                                   if Path(f"/usr/local/cuda/bin/{name}").exists() else None)
+    check(found, f"{name} not found")
+    return found
+
+
+def tensor_core_counts(lib):
+    """{kernel name: Counter of its tensor-core instructions (HGMMA, the
+    warpgroup wgmma; HMMA, the warp-level mma.sync) by SASS opcode}, from
+    ``cuobjdump -sass`` of a built library."""
+    out = subprocess.run([tool("cuobjdump"), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {lib}: {out.stderr.strip()[:200]}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = collections.Counter()
+            continue
+        op = re.search(r"\b(HGMMA|HMMA)\.[\w.]+", line)
+        if fn and op:
+            counts[fn][op.group(0)] += 1
+    return dict(zip(demangle(list(counts)), counts.values()))
+
+
+def route_report(build, name, wanted):
+    """Print the tensor-core instruction count of every kernel in library
+    ``name``; fail if a kernel whose name holds a key of ``wanted`` has
+    none where ``wanted`` says it must.  Returns {kernel: count}."""
+    counts = tensor_core_counts(build.library_path(name))
+    total = {}
+    for fn, c in sorted(counts.items()):
+        total[fn] = sum(c.values())
+        print(f"[route] {name}: {fn[:90]}: {total[fn]} tensor-core instructions"
+              f" {dict(c) or ''}")
+        for key, need in wanted.items():
+            if key in fn:
+                check((total[fn] > 0) == need, f"{fn}: {total[fn]} tensor-core instructions")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# The paged kernel at the serving shapes and its edge cases
+# ---------------------------------------------------------------------------
+
+# decode batches with a kv_len that is no multiple of the split, a row with
+# q_len 0 and splits wholly past kv_len, at gpt-paper's heads and at GQA
+# hd 256; and a mixed batch at GQA hd 256 (its decode rows split, its
+# prefill row's later query tiles not)
+PAGED_EDGE_SHAPES = {
+    "edge_split_hd64": dict(q_lens=[1, 0, 1, 1], kv_lens=[513, 0, 2048, 5], H=12, Kv=12, hd=64),
+    "edge_split_gqa_hd256": dict(q_lens=[1, 1, 0, 1], kv_lens=[300, 1, 0, 777], H=16, Kv=2,
+                                 hd=256),
+    "edge_mixed_gqa_hd256": dict(q_lens=[3, 1, 0, 9], kv_lens=[40, 300, 0, 1200], H=16, Kv=2,
+                                 hd=256),
+}
+
+
+def check_paged_kernel(torch, PA, shapes, ps, max_len):
+    """The kernel against its plain version on every shape, fp32 and bf16;
+    padding rows must be zeros.  Returns (max error by dtype, the inputs by
+    (shape, dtype))."""
+    max_err, cases = {}, {}
+    for dt_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt_name)
+        for i, (name, shp) in enumerate(shapes.items()):
+            args = ragged_case(torch, **shp, ps=ps, max_len=max_len, dtype=dtype, seed=i)
+            got = PA.paged_attention_blocked(*args)
+            torch.cuda.synchronize()
+            want = PA.paged_attention_blocked_plain(*args)
+            torch.cuda.synchronize()
+            atol, rtol = TOL[dt_name]
+            err, share = real_rows_err(got, want, shp["q_lens"], atol, rtol)
+            pad = torch.arange(got.shape[1], device="cuda")[None, :] >= args[3][:, None]
+            check(bool((got[pad] == 0).all()), f"{name} {dt_name}: padding rows not zero")
+            check(bool(torch.isfinite(got).all()), f"{name} {dt_name}: non-finite output")
+            n_split, split_keys = PA.split_plan(ps, args[2].shape[1])
+            print(f"[kernel] paged_attention {name} {dt_name} q_max={got.shape[1]}"
+                  f" S={got.shape[0]} H={shp['H']} Kv={shp['Kv']} hd={shp['hd']}"
+                  f" kv_lens={shp['kv_lens']} splits {n_split} x {split_keys}:"
+                  f" max_abs_err {err:.3e}, {share:.3f} of the limit {atol:g} + {rtol:g}|want|")
+            check(share <= 1.0, f"paged_attention {name} {dt_name} err {err}")
+            max_err[dt_name] = max(max_err.get(dt_name, 0.0), err)
+            cases[(name, dt_name)] = args
+    return max_err, cases
+
+
+def time_paged_kernel(torch, F, PA, shapes, cases, flush, card):
+    """The kernel at the given serving shapes in bf16, beside its bound, its
+    plain version and SDPA on the gathered dense KV with the same ragged
+    causal mask."""
+    timed = {}
+    for name, shp in shapes.items():
+        q, pages, table, q_lens, kv_lens = args = cases[(name, "bfloat16")]
+        nbytes, ops = work(shp["q_lens"], shp["kv_lens"], shp["H"], shp["Kv"], shp["hd"],
+                           table.shape[1], 2)
+        S, q_max, H, hd = q.shape
+        Kv = shp["Kv"]
+        L_ctx = max(shp["kv_lens"])
+        kd, vd = PA.split_kv(pages[table.long()].reshape(S, -1, 2 * Kv, hd)[:, :L_ctx])
+        kd, vd = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+        qd = q.transpose(1, 2).contiguous()
+        qpos = (kv_lens - q_lens)[:, None] + torch.arange(q_max, device="cuda")[None]
+        kpos = torch.arange(L_ctx, device="cuda")
+        mask = ((kpos[None, None] <= qpos[:, :, None])
+                & (kpos[None, None] < kv_lens[:, None, None]))[:, None]
+        timed[name] = {
+            "ms": time_ms(torch, lambda: PA.paged_attention_blocked(*args), flush),
+            "plain_ms": time_ms(torch, lambda: PA.paged_attention_blocked_plain(*args), flush),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask, enable_gqa=True), flush),
+            **bound(nbytes, ops),
+            "q_max": q_max,
+        }
+        t = timed[name]
+        print(f"[time] paged_attention {name} bf16 (S={S} q_max={q_max} H={H} hd={hd}):"
+              f" kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']};"
+              f" {nbytes} B, {ops} ops), plain {t['plain_ms']:.4f} ms,"
+              f" SDPA {t['library_ms']:.4f} ms, {t['bound_ms'] / t['ms']:.1%} of bound;"
+              f" {card}")
+    return timed
+
+
 # ---------------------------------------------------------------------------
 # The compiler path: autochunk on gpt-paper with the chunked-attention kernels
 # ---------------------------------------------------------------------------
@@ -205,6 +371,16 @@ def gpt_attention_cases(chunk, ext):
     cases += [dict(name="gpt_window", N=12, group=1, hd=64, off=offsets["mid"], window=1024),
               dict(name="gqa_last", N=8, group=4, hd=128, off=offsets["last"], window=None)]
     return [dict(c, Sq=chunk, Skv=ext) for c in cases]
+
+
+# ragged Sq and Skv (GQA), hd 32, and a causal window whose first rows sit
+# before key 0 and see no live key (they average V over the visited tiles)
+ATTENTION_EDGE_CASES = [
+    dict(name="ragged_1000x8000", N=4, group=2, hd=64, Sq=1000, Skv=8000, off=7000, window=None),
+    dict(name="ragged_17x100", N=2, group=3, hd=128, Sq=17, Skv=100, off=83, window=None),
+    dict(name="hd32", N=4, group=1, hd=32, Sq=300, Skv=700, off=400, window=None),
+    dict(name="window_dead_rows", N=4, group=1, hd=64, Sq=200, Skv=512, off=-40, window=128),
+]
 
 
 def check_attention_kernels(torch, CA, cases, errs=None):
@@ -358,6 +534,10 @@ def run_compiled_forward(torch, CA, stats, M, cfg, card, *, mask_mode):
         CA.computed_attention.launches = CA.masked_attention.launches = 0
         y1, peak1, ms1 = measure_forward(torch, compiled, (params, batch))
         launches = kernel.launches
+        trace = device_time_split(torch, lambda: compiled(params, batch), card,
+                                  f"compiled gpt-paper forward ({mask_mode})",
+                                  {kname: ("chunk_attention",),
+                                   "cuBLAS products": ("gemm", "nvjet")})
     check(launches == expected, f"{kname} launched {launches} times, want {expected}")
     check(launches == cfg.n_layers * (expected // cfg.n_layers), "uneven chunk counts")
     check(bool(torch.isfinite(y1[..., :cfg.vocab_size]).all()), "non-finite chunked logits")
@@ -367,7 +547,7 @@ def run_compiled_forward(torch, CA, stats, M, cfg, card, *, mask_mode):
           f" time unchunked {ms0:.2f} ms, chunked {ms1:.2f} ms; {kname} launches"
           f" {launches} = {cfg.n_layers} layers x {expected // cfg.n_layers} chunks; {card}")
     out = dict(launches=launches, chunk=chunks[0], peak0=peak0, peak1=peak1, ms0=ms0, ms1=ms1,
-               pred0=r.baseline_peak, pred1=r.final_peak)
+               pred0=r.baseline_peak, pred1=r.final_peak, device_ms=trace)
     del y1, compiled, planned, model
     return out
 
@@ -1196,9 +1376,12 @@ def main() -> int:
         builds = dict(zip(sources, pool.map(timed_build, sources)))
     for name, (log, seconds) in builds.items():
         print(f"[build] {name}.cu with nvcc in {seconds:.2f}s")
-        for line in log.splitlines():
-            if "registers" in line:
-                print(f"[build] {name}: {line.strip()}")
+        ptxas_report(name, log)
+    # which route each redesigned kernel took: tensor-core instructions in
+    # its SASS (the bf16 computed-mask kernel must have them)
+    routes = {"chunked_attention": route_report(build, "chunked_attention",
+                                                {"chunk_attention_wgmma_kernel": True}),
+              "paged_attention": route_report(build, "paged_attention", {})}
 
     # ---- 3. kernel against its plain version at the serving shapes -------
     cfg = get_config("gpt-paper")                         # bf16, full width
@@ -1218,27 +1401,7 @@ def main() -> int:
         "gqa_decode": dict(decode, H=32, Kv=8, hd=128),
         "gqa_mixed": dict(mixed, H=32, Kv=8, hd=128),
     }
-    max_err = {}
-    cases = {}
-    for dt_name in ("float32", "bfloat16"):
-        dtype = getattr(torch, dt_name)
-        for i, (name, shp) in enumerate(shapes.items()):
-            args = ragged_case(torch, **shp, ps=ps, max_len=L_max, dtype=dtype, seed=i)
-            got = PA.paged_attention_blocked(*args)
-            torch.cuda.synchronize()
-            want = PA.paged_attention_blocked_plain(*args)
-            torch.cuda.synchronize()
-            atol, rtol = TOL[dt_name]
-            err, share = real_rows_err(got, want, shp["q_lens"], atol, rtol)
-            pad = torch.arange(got.shape[1], device="cuda")[None, :] >= args[3][:, None]
-            check(bool((got[pad] == 0).all()), f"{name} {dt_name}: padding rows not zero")
-            check(bool(torch.isfinite(got).all()), f"{name} {dt_name}: non-finite output")
-            print(f"[kernel] paged_attention {name} {dt_name} q_max={got.shape[1]}"
-                  f" S={got.shape[0]} H={shp['H']} Kv={shp['Kv']} hd={shp['hd']}:"
-                  f" max_abs_err {err:.3e}, {share:.3f} of the limit {atol:g} + {rtol:g}|want|")
-            check(share <= 1.0, f"paged_attention {name} {dt_name} err {err}")
-            max_err[dt_name] = max(max_err.get(dt_name, 0.0), err)
-            cases[(name, dt_name)] = args
+    max_err, cases = check_paged_kernel(torch, PA, {**shapes, **PAGED_EDGE_SHAPES}, ps, L_max)
 
     # ---- 4. serve gpt-paper at full width: the port's main path ----------
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
@@ -1284,7 +1447,9 @@ def main() -> int:
           f" one-block peak {plan.peak_bytes} B of budget {plan.budget_bytes} B"
           f" (unchunked {plan.baseline_peak_bytes} B)")
     print(f"[serve] paged_attention launches {launches} = {cfg.n_layers} layers x {steps}"
-          f" steps; pages allocated {d['pages_allocated']} freed {d['pages_freed']}")
+          f" steps; pages allocated {d['pages_allocated']} freed {d['pages_freed']};"
+          f" sched_stats {dict(engine.sched_stats)}; served tokens sha256"
+          f" {token_digest(reqs)}")
 
     # ---- 4b. where the serving window's device time goes (informational) --
     # the same requests again under torch.profiler; its host overhead
@@ -1307,12 +1472,30 @@ def main() -> int:
         print("[trace] torch.profiler recorded no device time: the split of the"
               " serving window is not measured")
     else:
-        attn = sum(us for n, us in device_us.items() if "paged_attention_kernel" in n) / 1e6
+        # the split kernel and, at decode, its merge
+        attn = sum(us for n, us in device_us.items() if "paged_attention" in n) / 1e6
         print(f"[trace] serving window on the device: busy {busy:.4f}s of the untraced"
-              f" {wall:.4f}s wall (idle {1 - busy / wall:.1%}); paged_attention_kernel"
+              f" {wall:.4f}s wall (idle {1 - busy / wall:.1%}); paged_attention kernels"
               f" {attn:.4f}s = {attn / wall:.1%} of wall, {attn / busy:.1%} of busy; {card}")
         for n, us in device_us.most_common(8):
             print(f"[trace]   {us / 1e3:10.3f} ms  {n[:100]}")
+
+    # ---- 4c. the same requests with the plain version swapped in ---------
+    # (this script's comparison; the engine has no switch): which served
+    # tokens the kernel's rounding changed, if any
+    from repro_torch.serving import engine as serving_engine
+    plain_reqs = [Request(rid=200 + r.rid, prompt=r.prompt, max_new_tokens=SERVE["max_new"])
+                  for r in reqs]
+    serving_engine.paged_attention_blocked = PA.paged_attention_blocked_plain
+    try:
+        for r in plain_reqs:
+            engine.submit(r)
+        engine.run()
+    finally:
+        serving_engine.paged_attention_blocked = PA.paged_attention_blocked
+    same = sum(a == b for r, rp in zip(reqs, plain_reqs) for a, b in zip(r.generated, rp.generated))
+    print(f"[serve] the same requests with the plain version swapped in: served tokens sha256"
+          f" {token_digest(plain_reqs)}; {same} of {toks} tokens equal to the kernel's")
     del engine, params
 
     # ---- 5. served logits against the dense forward, fp32 ----------------
@@ -1360,38 +1543,9 @@ def main() -> int:
 
     # ---- 7. times at the serving shapes ----------------------------------
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    timed = {}
-    for name in ("gpt_decode", "gpt_serve_decode", "gpt_mixed"):
-        shp = shapes[name]
-        q, pages, table, q_lens, kv_lens = args = cases[(name, "bfloat16")]
-        nbytes, ops = work(shp["q_lens"], shp["kv_lens"], shp["H"], shp["Kv"], shp["hd"],
-                           table.shape[1], 2)
-        # the library yardstick: SDPA on the gathered dense KV with the
-        # same ragged causal mask
-        S, q_max, H, hd = q.shape
-        Kv = shp["Kv"]
-        L_ctx = max(shp["kv_lens"])
-        kd, vd = PA.split_kv(pages[table.long()].reshape(S, -1, 2 * Kv, hd)[:, :L_ctx])
-        kd, vd = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
-        qd = q.transpose(1, 2).contiguous()
-        qpos = (kv_lens - q_lens)[:, None] + torch.arange(q_max, device="cuda")[None]
-        kpos = torch.arange(L_ctx, device="cuda")
-        mask = ((kpos[None, None] <= qpos[:, :, None])
-                & (kpos[None, None] < kv_lens[:, None, None]))[:, None]
-        timed[name] = {
-            "ms": time_ms(torch, lambda: PA.paged_attention_blocked(*args), flush),
-            "plain_ms": time_ms(torch, lambda: PA.paged_attention_blocked_plain(*args), flush),
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qd, kd, vd, attn_mask=mask, enable_gqa=True), flush),
-            **bound(nbytes, ops),
-            "q_max": q_max,
-        }
-        t = timed[name]
-        print(f"[time] paged_attention {name} bf16 (S={S} q_max={q_max} H={H} hd={hd}):"
-              f" kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']};"
-              f" {nbytes} B, {ops} ops), plain {t['plain_ms']:.4f} ms,"
-              f" SDPA {t['library_ms']:.4f} ms, {t['bound_ms'] / t['ms']:.1%} of bound;"
-              f" {card}")
+    timed = time_paged_kernel(torch, F, PA, {k: shapes[k] for k in
+                                             ("gpt_decode", "gpt_serve_decode", "gpt_mixed")},
+                              cases, flush, card)
 
     # ---- 8. the compiler path: autochunk on gpt-paper at full width ------
     # compile + drive (counts zeroed just before, read just after), for the
@@ -1409,7 +1563,8 @@ def main() -> int:
 
     # ---- 9. the chunked-attention kernels against their plain versions --
     c_chunk, ext = fwd["auto"]["chunk"], COMPILE["seq_len"]
-    attn_err = check_attention_kernels(torch, CA, gpt_attention_cases(c_chunk, ext))
+    attn_err = check_attention_kernels(torch, CA, gpt_attention_cases(c_chunk, ext)
+                                       + ATTENTION_EDGE_CASES)
 
     # ---- 10. their times at the compiled forward's chunk shape ----------
     attn_timed = time_attention_kernels(torch, F, CA, c_chunk, ext, flush, card)
@@ -1505,6 +1660,7 @@ def main() -> int:
         "max_err_bf16": max_err["bfloat16"],
         "max_err_fp32": max_err["float32"],
         "shapes": timed,
+        "tensor_core_instructions": routes["paged_attention"],
     }
     entries = [entry]
     for kname, mode, line in (("computed_attention", "auto", 138),
@@ -1524,6 +1680,7 @@ def main() -> int:
             "forward": dict(fwd[mode], fp32_logits_err=fp32_err[mode]),
         })
     entries[1]["block_shape"] = block_attn_timed
+    entries[1]["tensor_core_instructions"] = routes["chunked_attention"]
     # computed_attention also carries the per-block path: its launches there
     # are in the chunked_ffn entry's "forward" record, its time at that
     # path's chunk in its own "block_shape"

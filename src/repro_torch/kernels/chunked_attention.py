@@ -21,7 +21,10 @@ TPU kernel does at its own block sizes.
 On a CUDA tensor each wrapper launches the hand-written kernel in
 ``csrc/chunked_attention.cu`` (or raises); on a CPU tensor it runs the plain
 PyTorch version beside it.  Each wrapper counts its kernel launches in
-``.launches``.
+``.launches``.  The source routes by dtype: bf16 :func:`computed_attention`
+runs on the tensor cores (wgmma, P in registers as bf16 hi + lo); f32 and
+:func:`masked_attention` run on CUDA-core f32 FMAs.  Both kernels walk the
+same 64 x 64 tiles (:data:`BLOCK_Q`, :data:`BLOCK_KV`).
 """
 from __future__ import annotations
 
@@ -161,14 +164,16 @@ def _check(q, k, v, group, mask=None):
 
 
 def _cuda_ready(q, k, v, mask=None):
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
+    """What the CUDA kernels take beyond :func:`_check`; raises on anything
+    else, the device last."""
     hd = q.shape[-1]
     if hd not in _HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes hd in {_HEAD_DIMS}, got {hd}")
     for name, t in (("q", q), ("k", k), ("v", v), ("mask", mask)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
 
 
 def computed_attention(q, k, v, q_offset=None, *, scale: float, causal: bool = True,

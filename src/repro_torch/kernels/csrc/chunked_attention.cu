@@ -13,17 +13,23 @@
 // Pallas kernels give.
 //
 // What bounds it on the H100: at the compiler's shapes (a chunk of queries
-// against 8192 keys, hd 64) each staged K/V tile is reused by 64 query rows,
-// so the work is 4*hd operations per live (query, key) pair against a few
-// bytes per pair: operations bound.  The masked kernel also reads one mask
-// byte per pair, which is still below the card's operations-per-byte balance.
+// against 8192 keys, hd 64 or 128) each staged K/V tile is reused by 64 query
+// rows, so the work is 4*hd operations per live (query, key) pair against a
+// few bytes per pair: operations bound, and in bf16 only the tensor cores
+// reach that bound.
 //
-// Design (simple and right first; CUDA-core FMAs, no wgmma, no TMA):
-// * One thread block of 128 threads per (64-query tile, flat head n).  The
-//   Pallas grid walked kv blocks in order with the accumulator in VMEM
-//   scratch; here the kv walk is a loop inside the block.  Each thread owns
-//   4 query rows; m, l and its 4 x hd/8 slice of the f32 accumulator stay in
-//   registers.
+// Routing (in dispatch() below, by dtype; not a fallback):
+//   * computed_attention_fwd, bf16  -> chunk_attention_wgmma_kernel: both
+//     products on the tensor cores (wgmma), K/V tiles in a two-stage cp.async
+//     ring, P kept in registers.  hd 32, 64, 128; anything else is refused.
+//   * computed_attention_fwd, f32, and masked_attention_fwd (f32 and bf16)
+//     -> chunk_attention_kernel: CUDA-core f32 FMAs.  f32 stays off the TF32
+//     tensor cores because TF32 keeps about three decimal digits, short of the
+//     1e-4 that the f32 checks hold the kernel to.
+//
+// Shared by both kernels (the plain version's band_tiles() assumes them):
+// * One 128-thread block per (64-query tile, flat head n); the kv walk is a
+//   loop inside the block, in tiles of 64 keys (kBQ, kBKV).
 // * GQA is native: head n reads kv head n / group; K and V are never repeated.
 // * computed: the band bounds the loop.  It runs from the first kv tile the
 //   window can reach to the last tile the causal limit q_offset + q_tile_end
@@ -31,17 +37,46 @@
 //   never read.  The per-element predicate (kpos <= qpos, qpos - kpos < window)
 //   is applied only in tiles the band cuts.  Positions come from blockIdx and
 //   q_offset; no mask exists in memory.
-// * masked: every kv tile; the mask bytes of the tile are read beside K and V.
-// * Per kv tile of 64 keys: Q (once), K and V are staged in shared memory as
-//   f32 (Q and K transposed so a thread reads 4 rows / 8 keys as float4),
-//   each thread computes a 4 x 8 block of logits, the row max and sum are
-//   reduced over the 8 lanes that share a row with xor shuffles, P goes
-//   through shared memory, and each thread accumulates its 4 x hd/8 block of
-//   P @ V.
 // * Ragged edges: Sq and Skv need not be multiples of 64.  Query rows past Sq
 //   are computed on zeros and not stored; keys past Skv get -inf (weight 0).
-// * Inputs bf16 or fp32, f32 arithmetic, output in q's type.  hd in
-//   {32, 64, 128}.
+// * Output in q's type.
+//
+// chunk_attention_kernel (CUDA cores): Q (once), K and V are staged in shared
+// memory as f32 (Q and K transposed so a thread reads 4 rows / 8 keys as
+// float4); each thread owns 4 query rows and computes a 4 x 8 block of logits,
+// the row max and sum are reduced over the 8 lanes that share a row with xor
+// shuffles, P goes through shared memory, and each thread accumulates its
+// 4 x hd/8 block of P @ V.  The masked kernel reads the mask bytes of each
+// tile beside K and V and visits every tile.
+//
+// chunk_attention_wgmma_kernel (tensor cores, bf16):
+// * The block is one warpgroup; 64 query rows are exactly wgmma's M.
+// * Q, K and V tiles stay bf16 in shared memory in the layout wgmma's
+//   descriptors read: rows of min(2*hd, 128) bytes, 16-byte chunks XOR-
+//   swizzled by the row (128B swizzle; 64B at hd 32), column blocks of 64
+//   rows.  The same layout serves K as the K-major B of S = Q K^T and V as
+//   the MN-major (transposed) B of O = P V.
+// * S = Q K^T: hd/16 wgmma m64n64k16 with both operands in shared memory.
+//   The f32 S accumulator (32 values a thread: rows g and g+8 of its warp's
+//   16, two columns of each 8) is masked, scaled and exponentiated in
+//   registers and packed to bf16: that accumulator layout is the register-A
+//   layout of the next product, so P never touches shared memory.
+// * O += P V: wgmma m64n{hd}k16 with A (P) in registers and V transposed.
+//   P goes in as two bf16 operands, hi = bf16(p) and lo = bf16(p - hi), so
+//   the weights carry about 2^-17 of rounding where bf16 alone carries 2^-9:
+//   a row with few live keys would otherwise stray by a unit in the last
+//   place of the bf16 output beyond the output's own rounding.  l is summed
+//   from the same hi + lo that multiplies V.  8 products of P V a tile where
+//   bf16 alone needs 4, beside hd/16 of Q K^T.
+// * The two products overlap the softmax: iteration t issues S(t) = Q K(t)^T
+//   and O += P(t-1) V(t-1) together, waits for S(t) alone, and masks and
+//   exponentiates it while P V runs; only then rescales O and packs P(t).
+// * K and V tiles come in through two-stage cp.async rings (16-byte copies,
+//   zero-filled past Skv), K one tile ahead of V: the copies of K(t+1) and
+//   V(t) are in flight while iteration t computes.  Shared memory is 5 tiles
+//   (Q, 2 x K, 2 x V): 80 KB at hd 128, so two blocks fit on an SM.
+// * Query tiles are issued from the last to the first: under a causal band
+//   the last tiles see the most keys, so the long blocks start first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -256,6 +291,410 @@ chunk_attention_kernel(const T* __restrict__ q,             // (N*group, Sq, HD)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 computed-mask kernel on the tensor cores
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// this thread's shared-memory writes (generic proxy) become visible to wgmma
+// (async proxy); a barrier after it covers the other threads' writes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// The compiler sees a wgmma as one instruction that reads and writes its
+// registers at issue; the hardware reads A and writes D until the wait.
+// Pinning the registers after the wait keeps the compiler from reading D
+// early or reusing A's registers while the product is in flight.
+template <int N>
+__device__ __forceinline__ void pin(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i]) :: "memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void pin(uint32_t (&x)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(x[i][j]) :: "memory");
+}
+
+// D(64 x 64) (+)= A(64 x 16, K-major in smem) * B(64 x 16, K-major in smem)
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D(64 x 32) (+)= A(64 x 16, registers) * B(16 x 32, MN-major in smem)
+__device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// D(64 x 64) (+)= A(64 x 16, registers) * B(16 x 64, MN-major in smem)
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// D(64 x 128) (+)= A(64 x 16, registers) * B(16 x 128, MN-major in smem)
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+
+// A tile of 64 rows x HD bf16 in shared memory, laid out for wgmma: rows of
+// kRowBytes = min(2 HD, 128) bytes (one swizzle atom wide), 8-row groups
+// kRowBytes * 8 apart, 2 HD / kRowBytes column blocks of 64 rows each, and
+// the 16-byte chunk c of row r stored at chunk c ^ (address bits 7..9) --
+// CUDA's 128-byte swizzle (64-byte at hd 32).  Tiles start 1024-byte aligned,
+// so the swizzle of an offset is the swizzle of its address.
+template <int HD>
+struct Tile {
+  static constexpr int kRowBytes = 2 * HD < 128 ? 2 * HD : 128;
+  static constexpr int kBlockBytes = 64 * kRowBytes;         // one column block
+  static constexpr int kBytes = 64 * HD * 2;
+  static constexpr uint32_t kSwizzle = kRowBytes / 16 - 1;   // 7 (128B) or 3 (64B)
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // descriptor: B128, B64
+  static_assert(kRowBytes == 128 || kRowBytes == 64, "hd must be 32, 64 or 128");
+
+  // byte offset of chunk ch (bf16 elements 8 ch .. 8 ch + 7) of row r
+  __device__ static uint32_t offset(int r, int ch) {
+    const int byte = ch * 16;
+    const uint32_t off = (byte / kRowBytes) * kBlockBytes + r * kRowBytes + byte % kRowBytes;
+    return off ^ (((off >> 7) & kSwizzle) << 4);
+  }
+
+  // wgmma matrix descriptor: start address, leading and stride byte offsets
+  // (16-byte units), swizzle mode
+  __device__ static uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+           ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (kLayout << 62);
+  }
+  // the tile as a K-major operand (rows = M or N, hd = K), k-step kk of 16
+  // hd values: 32 bytes into the row, inside its column block
+  __device__ static uint64_t k_major(uint32_t base, int kk) {
+    return desc(base + (kk * 32 / kRowBytes) * kBlockBytes + (kk * 32) % kRowBytes, 16,
+                8 * kRowBytes);
+  }
+  // the tile as an MN-major operand (rows = K, hd = N), k-step kk of 16 rows;
+  // the next 64 hd values are one column block further on
+  __device__ static uint64_t mn_major(uint32_t base, int kk) {
+    return desc(base + kk * 16 * kRowBytes, kBlockBytes, 8 * kRowBytes);
+  }
+
+  // rows [0, 64) of a row-major (rows, HD) source, rows >= valid as zeros
+  __device__ static void load(uint32_t dst, const __nv_bfloat16* src, int valid, int tid) {
+    constexpr int kChunks = HD / 8;   // 16-byte chunks a row
+#pragma unroll
+    for (int i = 0; i < 64 * kChunks / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int r = e / kChunks, ch = e % kChunks;
+      const bool in = r < valid;
+      cp_async_16(dst + offset(r, ch), src + (size_t)(in ? r : 0) * HD + ch * 8, in ? 16 : 0);
+    }
+  }
+};
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_v) {
+  if constexpr (HD == 32) {
+    wgmma_rs_m64n32(o, a, desc_v, 1);
+  } else if constexpr (HD == 64) {
+    wgmma_rs_m64n64(o, a, desc_v, 1);
+  } else {
+    wgmma_rs_m64n128(o, a, desc_v, 1);
+  }
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 b) {
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// Two probabilities (keys c, c + 1 of one row) as bf16 hi + lo register
+// operands, p ~= hi + lo to about 2^-17; their sum, as the products will
+// see it, goes into the row's l.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo,
+                                           float& sum) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  const float2 rf = __bfloat1622float2(r);
+  sum += (hf.x + rf.x) + (hf.y + rf.y);
+  hi = bits(h);
+  lo = bits(r);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+chunk_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,   // (N*group, Sq, HD)
+                             const __nv_bfloat16* __restrict__ k,   // (N, Skv, HD)
+                             const __nv_bfloat16* __restrict__ v,   // (N, Skv, HD)
+                             __nv_bfloat16* __restrict__ out,       // (N*group, Sq, HD)
+                             int group, int Sq, int Skv, int q_offset, int causal, int window,
+                             float scale_log2) {
+  static_assert(kBQ == 64 && kBKV == 64 && kThreads == 128,
+                "one warpgroup, one wgmma M of query rows, 64-key tiles");
+  using Tl = Tile<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  // Q, K0, V0, K1, V1, from a 1024-byte aligned base
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int n = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int q_end = min(q0 + kBQ, Sq);
+  const __nv_bfloat16* qn = q + (size_t)n * Sq * HD;
+  const __nv_bfloat16* kn = k + (size_t)(n / group) * Skv * HD;
+  const __nv_bfloat16* vn = v + (size_t)(n / group) * Skv * HD;
+
+  const int n_tiles = (Skv + kBKV - 1) / kBKV;
+  int t_lo = 0, t_hi = n_tiles;
+  if (causal) {
+    const long long last = (long long)q_offset + q_end - 1;
+    t_hi = last < 0 ? 0 : (int)min((long long)n_tiles, last / kBKV + 1);
+  }
+  if (window > 0) {
+    t_lo = (int)max(0LL, floor_div((long long)q_offset + q0 - (window - 1), kBKV));
+  }
+  const int n_visit = max(0, t_hi - t_lo);
+
+  // this thread's accumulator rows and columns (wgmma's D layout): rows
+  // r_lo and r_lo + 8; columns 8 j + c0, 8 j + c0 + 1 of each 8-column chunk j
+  const int r_lo = warp * 16 + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  float o[HD / 2];
+  float s[32];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};   // running max of the base-2 logits
+  float l[2] = {0.f, 0.f};           // this thread's part of the row sums
+
+  // Shared memory: Q, then K slots 0 and 1, then V slots 0 and 1.  Iteration
+  // it computes S = Q K(it)^T and, beside it on the tensor cores, O +=
+  // P(it-1) V(it-1): so K runs one tile ahead of V, and the copies issued in
+  // iteration it (K(it+1), V(it)) overwrite the slots of K(it-1) and V(it-2),
+  // both consumed before the barrier that ends iteration it-1.
+  auto k_slot = [&](int i) { return base + (1 + (i & 1)) * Tl::kBytes; };
+  auto v_slot = [&](int i) { return base + (3 + (i & 1)) * Tl::kBytes; };
+  if (n_visit > 0) {
+    Tl::load(sQ, qn + (size_t)q0 * HD, Sq - q0, tid);
+    Tl::load(k_slot(0), kn + (size_t)t_lo * kBKV * HD, Skv - t_lo * kBKV, tid);
+  }
+  cp_async_commit();
+
+  uint32_t p_hi[4][4] = {}, p_lo[4][4] = {};   // P of the previous tile, as A fragments
+  for (int it = 0; it < n_visit; ++it) {
+    const int k0 = (t_lo + it) * kBKV;
+    if (it + 1 < n_visit) {
+      Tl::load(k_slot(it + 1), kn + (size_t)(k0 + kBKV) * HD, Skv - k0 - kBKV, tid);
+    }
+    Tl::load(v_slot(it), vn + (size_t)k0 * HD, Skv - k0, tid);
+    cp_async_commit();
+    cp_async_wait<1>();       // Q, K(it) and V(it-1) have landed
+    fence_proxy_async();
+    __syncthreads();
+
+    // S = Q K(it)^T, and O += P(it-1) V(it-1) as P_hi V + P_lo V
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wgmma_ss_m64n64(s, Tl::k_major(sQ, kk), Tl::k_major(k_slot(it), kk), kk > 0);
+    }
+    wgmma_commit();
+    if (it > 0) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_pv<HD>(o, p_hi[kk], Tl::mn_major(v_slot(it - 1), kk));
+        wgmma_pv<HD>(o, p_lo[kk], Tl::mn_major(v_slot(it - 1), kk));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();        // S is done; P V may still run
+    } else {
+      wgmma_wait<0>();
+    }
+    pin(s);
+
+    // scale to base 2, mask, online softmax (while P V runs)
+    const bool cut = (causal && (long long)(k0 + kBKV - 1) > (long long)q_offset + q0) ||
+                     (window > 0 && (long long)q_offset + q_end - 1 - k0 >= window);
+    const bool edge = k0 + kBKV > Skv;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;                      // 0: row r_lo, 1: row r_lo + 8
+      const int kpos = k0 + 8 * (i >> 2) + c0 + (i & 1);
+      float x = s[i] * scale_log2;
+      if (cut) {
+        const long long qpos = (long long)q_offset + q0 + r_lo + 8 * r;
+        bool live = true;
+        if (causal) live = live && (long long)kpos <= qpos;
+        if (window > 0) live = live && qpos - kpos < window;
+        if (!live) x = kNegInf;
+      }
+      if (edge && kpos >= Skv) x = -INFINITY;          // not a key: weight 0
+      s[i] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = exp2f(s[i] - m[(i >> 1) & 1]);
+
+    // once P(it-1) V(it-1) is in O: rescale O, and P(it) takes P(it-1)'s
+    // registers; A fragment kk (keys 16 kk .. 16 kk + 15) is S values 8 kk .. 8 kk + 7
+    wgmma_wait<0>();
+    pin(o);
+    pin(p_hi);
+    pin(p_lo);
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int i = 8 * kk + 2 * h;
+        split_bf16(s[i], s[i + 1], p_hi[kk][h], p_lo[kk][h], l[h & 1]);
+      }
+    __syncthreads();          // K(it) and V(it-1) are free for the next copies
+  }
+  cp_async_wait<0>();
+  if (n_visit > 0) {          // the last tile's P V
+    fence_proxy_async();
+    __syncthreads();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_pv<HD>(o, p_hi[kk], Tl::mn_major(v_slot(n_visit - 1), kk));
+      wgmma_pv<HD>(o, p_lo[kk], Tl::mn_major(v_slot(n_visit - 1), kk));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(o);
+    pin(p_hi);
+    pin(p_lo);
+  }
+
+  __nv_bfloat16* on = out + (size_t)n * Sq * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    const int row = q0 + r_lo + 8 * r;
+    if (row >= Sq) continue;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(&on[(size_t)row * HD + 8 * j + c0]) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int n_q_heads,
+                         int group, int Sq, int Skv, int q_offset, int causal, int window,
+                         float scale, cudaStream_t stream) {
+  constexpr int bytes = 5 * Tile<HD>::kBytes + 1024;   // + alignment slack
+  static bool configured = false;   // the attribute is per function, set once
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(chunk_attention_wgmma_kernel<HD>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               bytes);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const dim3 grid((Sq + kBQ - 1) / kBQ, n_q_heads);
+  chunk_attention_wgmma_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), group, Sq, Skv,
+      q_offset, causal, window, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
 template <typename T, int HD, bool MASKED>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
                    int n_q_heads, int group, int Sq, int Skv, int q_offset, int causal,
@@ -308,6 +747,21 @@ int dispatch(int dtype, int hd, const void* q, const void* k, const void* v, con
   if (dtype == 0) {
     return (int)launch_hd<float, MASKED>(hd, q, k, v, mask, out, n_q_heads, group, Sq, Skv,
                                          q_offset, causal, window, mask_heads, scale, st);
+  }
+  if (dtype == 1 && !MASKED) {   // bf16 computed: the tensor-core kernel
+    switch (hd) {
+      case 32:
+        return (int)launch_wgmma<32>(q, k, v, out, n_q_heads, group, Sq, Skv, q_offset, causal,
+                                     window, scale, st);
+      case 64:
+        return (int)launch_wgmma<64>(q, k, v, out, n_q_heads, group, Sq, Skv, q_offset, causal,
+                                     window, scale, st);
+      case 128:
+        return (int)launch_wgmma<128>(q, k, v, out, n_q_heads, group, Sq, Skv, q_offset,
+                                      causal, window, scale, st);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
   if (dtype == 1) {
     return (int)launch_hd<__nv_bfloat16, MASKED>(hd, q, k, v, mask, out, n_q_heads, group,

@@ -15,6 +15,12 @@ On a CUDA tensor it launches the hand-written kernel in
 ``csrc/paged_attention.cu`` (or raises); on a CPU tensor it runs
 :func:`paged_attention_blocked_plain`, the same function in plain PyTorch.
 Query rows at or past ``q_lens[s]`` come back as zeros on both paths.
+
+The kernel splits the keys of each row's first query tile (all of a decode
+row's queries) into ranges of :func:`split_plan`'s size, computes a partial
+softmax per range and merges the partials with log-sum-exp weights
+(flash-decoding); the split count comes from the page table's width, never
+from ``kv_lens``, so the host never waits for the device.
 """
 from __future__ import annotations
 
@@ -31,6 +37,25 @@ NEG_INF = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
+SPLIT_KEYS = 256   # keys per split, rounded up to whole pages
+
+
+def split_plan(page_size: int, max_pages: int):
+    """(n_split, split_keys) of a launch, from the page table's shape alone:
+    its ``max_pages * page_size`` keys in ranges of :data:`SPLIT_KEYS`
+    rounded up to whole pages (one range if that covers them)."""
+    split_keys = -(-SPLIT_KEYS // page_size) * page_size
+    width = max_pages * page_size
+    if width <= split_keys:
+        return 1, width
+    return -(-width // split_keys), split_keys
+
+
+def query_tile(q_max: int, group: int) -> int:
+    """Query vectors a kernel block takes: the least of 1, 4, 8 that holds
+    a row's ``q_max * group`` vectors of one kv head, else 8."""
+    n = q_max * group
+    return 1 if n <= 1 else 4 if n <= 4 else 8
 
 
 def interleave_kv(k, v):
@@ -85,7 +110,7 @@ def paged_attention_blocked_plain(q, kv_pages, page_table, q_lens, kv_lens, *,
 def _kernel():
     """The C entry point of ``csrc/paged_attention.cu``, built on first use."""
     fn = build.load("paged_attention").paged_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -126,7 +151,7 @@ def paged_attention_blocked(q, kv_pages, page_table, q_lens, kv_lens, *,
 
     ``pages_per_step`` is accepted for signature parity with the JAX
     wrapper and ignored: it sized the Mosaic DMA step on the TPU, and the
-    CUDA kernel stages its own key tiles.
+    CUDA kernel splits the keys by :func:`split_plan`.
     """
     del pages_per_step
     _check_args(q, kv_pages, page_table, q_lens, kv_lens)
@@ -142,13 +167,22 @@ def paged_attention_blocked(q, kv_pages, page_table, q_lens, kv_lens, *,
     kv_lens = kv_lens.to(torch.int32).contiguous()
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
+    if q.data_ptr() % 16 or kv_pages.data_ptr() % 16:
+        raise ValueError("q and kv_pages must be 16-byte aligned (the kernel reads 16-byte words)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    Kv = two_kv // 2
+    vt = query_tile(q_max, H // Kv)
+    n_split, split_keys = split_plan(page_size, page_table.shape[1])
+    # the partials (acc, then (m, l) pairs) of each row's first query tile
+    ws = (torch.empty(S * Kv * vt * n_split * (hd + 2), dtype=torch.float32,
+                      device=q.device) if n_split > 1 else None)
     err = _kernel()(q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(),
                     q_lens.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-                    S, q_max, H, two_kv // 2, hd, P, page_size, page_table.shape[1],
-                    float(scale), _DTYPE_CODES[q.dtype],
+                    None if ws is None else ws.data_ptr(),
+                    S, q_max, H, Kv, hd, P, page_size, page_table.shape[1], vt,
+                    n_split, split_keys, float(scale), _DTYPE_CODES[q.dtype],
                     torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {err}")

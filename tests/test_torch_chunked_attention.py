@@ -9,6 +9,8 @@ GQA.  Tolerances: float32 1e-5 (the two sum in another order); bfloat16
 one unit apart).
 """
 import importlib
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -138,6 +140,49 @@ def test_wrappers_check_shapes_and_devices():
         CA.computed_attention(q, k.half(), k.half(), scale=1.0, group=2)
     before = (CA.computed_attention.launches, CA.masked_attention.launches)
     CA.computed_attention(q, k, k, scale=1.0, group=2)      # CPU: the plain version
+    assert (CA.computed_attention.launches, CA.masked_attention.launches) == before
+
+
+def test_kernel_tiles_are_the_plain_versions_tiles():
+    """Both CUDA kernels walk kBQ x kBKV tiles, and the plain version's band
+    (which decides what a row with no live key averages over) assumes
+    BLOCK_Q x BLOCK_KV: the two must be the same numbers."""
+    src = (Path(CA.__file__).parent / "csrc" / "chunked_attention.cu").read_text()
+    tiles = {name: int(val) for name, val in
+             re.findall(r"constexpr int (kBQ|kBKV) = (\d+);", src)}
+    assert tiles == {"kBQ": CA.BLOCK_Q, "kBKV": CA.BLOCK_KV}
+    # the tensor-core kernel is built around the same constants
+    assert "static_assert(kBQ == 64 && kBKV == 64" in src
+    assert (CA.BLOCK_Q, CA.BLOCK_KV) == (64, 64)
+
+
+def _meta(shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+# inputs that pass the shape checks but that no CUDA kernel takes; on a
+# non-CPU tensor the wrapper raises before reaching any device
+NO_KERNEL = {
+    "hd16": (dict(q=_meta((4, 8, 16)), k=_meta((2, 8, 16))), "hd in"),
+    "hd256": (dict(q=_meta((4, 8, 256)), k=_meta((2, 8, 256))), "hd in"),
+    "non_contiguous_q": (dict(q=_meta((4, 64, 8)).transpose(1, 2), k=_meta((2, 8, 64))),
+                         "contiguous"),
+    "meta_device": (dict(q=_meta((4, 8, 64)), k=_meta((2, 8, 64))), "no kernel for device"),
+}
+
+
+@pytest.mark.parametrize("kernel", ["computed", "masked"])
+@pytest.mark.parametrize("what", sorted(NO_KERNEL))
+def test_wrappers_reject_what_no_kernel_takes(what, kernel):
+    args, message = NO_KERNEL[what]
+    q, k = args["q"], args["k"]
+    before = (CA.computed_attention.launches, CA.masked_attention.launches)
+    with pytest.raises(ValueError, match=message):
+        if kernel == "computed":
+            CA.computed_attention(q, k, k, scale=1.0, group=2)
+        else:
+            mask = torch.empty((1, q.shape[1], k.shape[1]), dtype=torch.bool, device="meta")
+            CA.masked_attention(q, k, k, mask, scale=1.0, group=2)
     assert (CA.computed_attention.launches, CA.masked_attention.launches) == before
 
 

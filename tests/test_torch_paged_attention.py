@@ -7,6 +7,8 @@ PyTorch version.  Outputs agree on real query rows to atol 1e-5 (float32;
 the two frameworks sum in different orders).  The JAX kernel leaves padding
 rows as garbage; the port writes zeros there.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -125,6 +127,102 @@ def test_bfloat16_plain_version_rounds_like_its_inputs():
     # one rounding of the f32 result to 8 mantissa bits: half a unit in the
     # last place, at most 2^-8 |out|
     torch.testing.assert_close(out.float(), ref, atol=1e-6, rtol=2.0 ** -8)
+
+
+# decode batches that the kernel splits: a kv_len no multiple of the split,
+# splits wholly past kv_len (the table is wider than every row), a row with
+# q_len 0; GQA
+SPLIT_CASES = {
+    # name: (q_lens, kv_lens, H, Kv, hd, page_size)
+    "decode_splits_past_kv_len": ([1, 1, 0, 1], [300, 1, 0, 520], 4, 2, 32, 16),
+    "decode_one_long_row": ([1, 1], [700, 17], 2, 1, 64, 8),
+}
+ALL_CASES = {**CASES, **SPLIT_CASES}
+
+
+def split_merge_model(q, pages, table, q_lens, kv_lens, split_keys):
+    """Plain model of the CUDA kernel's split-and-merge: each row's keys
+    below min(kv_len, table width) cut into ranges of ``split_keys``; per
+    range the partial (m, l, acc) of every query vector, (-inf, 0, 0) where
+    the range is empty; then the log-sum-exp merge of the partials,
+    acc / max(l, 1e-30).  Masked keys score -1e30; padding rows are zeros."""
+    S, q_max, H, hd = q.shape
+    P, ps, two_kv, _ = pages.shape
+    G = H // (two_kv // 2)
+    width = table.shape[1] * ps
+    k, v = PA.split_kv(pages[table.long().clamp(0, P - 1)].reshape(S, width, two_kv, hd))
+    k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)   # (S, width, H, hd)
+    out = torch.zeros_like(q)
+    for s in range(S):
+        ql, kl = int(q_lens[s]), int(kv_lens[s])
+        limit = min(kl, width)
+        for i in range(ql):
+            qpos = kl - ql + i
+            parts = []
+            for k0 in range(0, width, split_keys):
+                keys = torch.arange(k0, max(k0, min(k0 + split_keys, limit)))
+                if len(keys) == 0:
+                    parts.append((torch.full((H,), float("-inf")), torch.zeros(H),
+                                  torch.zeros(H, hd)))
+                    continue
+                x = torch.einsum("nhd,hd->hn", k[s, keys], q[s, i]) * hd ** -0.5
+                x = torch.where(keys[None, :] <= qpos, x, PA.NEG_INF)
+                m = x.amax(dim=1)
+                p = torch.exp(x - m[:, None])
+                parts.append((m, p.sum(dim=1), torch.einsum("hn,nhd->hd", p, v[s, keys])))
+            ms = torch.stack([m for m, _, _ in parts])                      # (n_split, H)
+            mm = ms.amax(dim=0)
+            w = torch.where(ms == float("-inf"), 0.0, torch.exp(ms - mm))
+            sum_l = (w * torch.stack([l for _, l, _ in parts])).sum(dim=0)
+            acc = (w[..., None] * torch.stack([a for _, _, a in parts])).sum(dim=0)
+            out[s, i] = acc / sum_l.clamp_min(1e-30)[:, None]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_out(name):
+    q_lens, kv_lens, H, Kv, hd, ps = ALL_CASES[name]
+    q, pages, table, ql, kl = _case(q_lens, kv_lens, H=H, Kv=Kv, hd=hd, ps=ps)
+    return np.asarray(jax_paged(jnp.asarray(q), jnp.asarray(pages), jnp.asarray(table),
+                                jnp.asarray(ql), jnp.asarray(kl), interpret=True))
+
+
+@pytest.mark.parametrize("split", ["kernel", "page"])
+@pytest.mark.parametrize("name", sorted(ALL_CASES))
+def test_split_merge_model_matches_plain_and_jax(name, split):
+    """The kernel's split-and-merge, modelled in plain PyTorch at the
+    kernel's own split size (``split_plan``'s) and at one page a split (many
+    partials, most past kv_len on the short rows), against the plain version
+    and the Pallas kernel."""
+    q_lens, kv_lens, H, Kv, hd, ps = ALL_CASES[name]
+    q, pages, table, ql, kl = _case(q_lens, kv_lens, H=H, Kv=Kv, hd=hd, ps=ps)
+    split_keys = PA.split_plan(ps, table.shape[1])[1] if split == "kernel" else ps
+    args = [torch.tensor(a) for a in (q, pages, table, ql, kl)]
+    got = split_merge_model(*args, split_keys).numpy()
+    np.testing.assert_allclose(got, PA.paged_attention_blocked_plain(*args).numpy(),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(_real_rows(got, q_lens), _real_rows(_jax_out(name), q_lens),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("page_size,max_pages,want", [
+    pytest.param(16, 128, (8, 256), id="serving"),
+    pytest.param(16, 16, (1, 256), id="one-split"),
+    pytest.param(48, 20, (4, 288), id="split-rounded-to-pages"),
+    pytest.param(1, 600, (3, 256), id="page-size-1"),
+])
+def test_split_plan_from_the_table_shape(page_size, max_pages, want):
+    """The split comes from the page table's shape alone (the host never
+    reads kv_lens): whole pages of about SPLIT_KEYS keys over its width."""
+    n_split, split_keys = PA.split_plan(page_size, max_pages)
+    assert (n_split, split_keys) == want
+    assert split_keys % page_size == 0 and n_split * split_keys >= max_pages * page_size
+
+
+@pytest.mark.parametrize("q_max,group,want", [(1, 1, 1), (1, 3, 4), (1, 4, 4), (2, 4, 8),
+                                              (1, 8, 8), (512, 1, 8), (512, 4, 8)])
+def test_query_tile_holds_a_decode_rows_vectors(q_max, group, want):
+    assert PA.query_tile(q_max, group) == want
 
 
 def test_interleave_split_roundtrip_matches_jax():
