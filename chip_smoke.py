@@ -6,11 +6,12 @@
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 with ``nvcc`` (one compiler per source, in parallel), prints each kernel's
 registers, shared memory and spills (``-Xptxas -v``) and, from
-``cuobjdump -sass``, the tensor-core instructions of the two attention
-libraries (``[route]`` lines; the bf16 ``computed_attention`` kernel must
-have them), and drives the port's five paths, two at gpt-paper's full
-width, one at minitron-4b's, one at mamba2-1.3b's and one at
-recurrentgemma-9b's:
+``cuobjdump -sass``, the tensor-core instructions of the attention and FFN
+libraries (``[route]`` lines; the bf16 attention kernel, computed and
+masked, and the bf16 FFN kernel must have HGMMA, their f32 kernels and the
+mask's tile pre-pass none), and drives the port's paths, two at
+gpt-paper's full width, one at minitron-4b's, one at phi3-mini-3.8b's, one
+at mamba2-1.3b's and one at recurrentgemma-9b's:
 
 * serving: the paged engine, its kernel held against its plain version at
   the serving shapes and at edge cases (split decode batches with a row of
@@ -24,7 +25,9 @@ recurrentgemma-9b's:
   forwards, and chunked against unchunked logits in float32.
   Both attention kernels are then held against their plain versions at the
   compiled chunk shape (plus a window and a GQA case, ragged Sq and Skv,
-  hd 32, and a window whose first rows see no live key);
+  hd 32, and a window whose first rows see no live key); the masked one
+  also with a random per-head mask holding a row with no live key, and at
+  the GQA cases with per-head masks holding dead tiles and such a row;
 * per-block AutoChunk inside the model forward: minitron-4b's 32-layer bf16
   forward of 8192 tokens with ``autochunk_budget=0.04``, one dense block
   compiled at the first layer and replayed for the other 31, its attention
@@ -37,6 +40,10 @@ recurrentgemma-9b's:
   1.5 times the unchunked bf16 logits).  ``chunked_ffn`` is then held
   against its plain version at the block's chunk, 2048 and 17 rows, with
   the fused and the separate weights;
+* phi3-mini-3.8b per block (2 layers, full width, S 8192, budget 0.03):
+  its hd 96 has no attention kernel, so dispatch leaves that loop generic
+  (a miss, no ``ValueError``) while the SwiGLU MLP runs on ``chunked_ffn``;
+  float32 per-block logits within 1e-3 of the unchunked ones;
 * the SSM family: mamba2-1.3b's 48-layer bf16 forward of 8192 tokens, each
   block's scan on ``ssd_scan``, unchunked and per block with
   ``autochunk_budget=0.9`` (the scan stays one kernel op in the compiled
@@ -237,17 +244,20 @@ def tensor_core_counts(lib):
 
 def route_report(build, name, wanted):
     """Print the tensor-core instruction count of every kernel in library
-    ``name``; fail if a kernel whose name holds a key of ``wanted`` has
-    none where ``wanted`` says it must.  Returns {kernel: count}."""
+    ``name``.  A kernel whose name holds a key of ``wanted`` must have HGMMA
+    (wgmma) instructions where ``wanted`` says True, and no tensor-core
+    instruction at all where it says False.  Returns {kernel: count}."""
     counts = tensor_core_counts(build.library_path(name))
     total = {}
     for fn, c in sorted(counts.items()):
         total[fn] = sum(c.values())
+        hgmma = sum(n for op, n in c.items() if op.startswith("HGMMA"))
         print(f"[route] {name}: {fn[:90]}: {total[fn]} tensor-core instructions"
               f" {dict(c) or ''}")
         for key, need in wanted.items():
             if key in fn:
-                check((total[fn] > 0) == need, f"{fn}: {total[fn]} tensor-core instructions")
+                check(hgmma > 0 if need else total[fn] == 0,
+                      f"{fn}: {hgmma} HGMMA of {total[fn]} tensor-core instructions")
     return total
 
 
@@ -407,6 +417,15 @@ def check_attention_kernels(torch, CA, cases, errs=None):
                 m = torch.rand((c["N"], chunk, ext), device="cuda") < 0.5
                 m[:, 7] = False
                 masks.append(("random", m))
+            if c["group"] > 1:
+                # per head: the band, or on every other head the band cut to
+                # blocks of 512 keys (dead tiles beside partial ones), and
+                # a row with no live key at all (its query tile walks every
+                # kv tile and the row gets the mean of all V)
+                m = band[None].repeat(c["N"] * c["group"], 1, 1)
+                m[1::2] &= kpos // 512 == qpos // 512
+                m[:, min(5, chunk - 1)] = False
+                masks.append(("per_head", m))
             runs = [("computed_attention", c["name"],
                      lambda: CA.computed_attention(q, k, v, c["off"], scale=scale,
                                                    window=c["window"], group=c["group"]),
@@ -597,8 +616,9 @@ def time_attention_kernels(torch, F, CA, chunk, ext, flush, card, *, N=12, group
             H * band_pairs(chunk, ext, off, True, None), io,
             lambda: CA.computed_attention(q, k, v, off, scale=scale, group=group),
             lambda: CA.computed_attention_plain(q, k, v, off, scale=scale, group=group)),
+        # the band's live pairs: the kernel skips the dead tiles
         "masked_attention": (
-            H * chunk * ext, io + chunk * ext,
+            H * band_pairs(chunk, ext, off, True, None), io + chunk * ext,
             lambda: CA.masked_attention(q, k, v, mask[None], scale=scale, group=group),
             lambda: CA.masked_attention_plain(q, k, v, mask[None], scale=scale, group=group)),
     }
@@ -823,7 +843,9 @@ def run_block_forward(torch, CA, CF, stats, M, card, attn_errs):
 
 # kernel-name patterns of the device time split: the per-block path's
 # kernels and the cuBLAS products
-BLOCK_KERNELS = {"chunked_ffn": ("ffn_", "cast_bf16"), "computed_attention": ("chunk_attention",),
+BLOCK_KERNELS = {"chunked_ffn": ("ffn_", "cast_bf16", "Memset"),
+                 "chunked_ffn's own kernel": ("ffn_",), "its workspace memset": ("Memset",),
+                 "its cast": ("cast_bf16",), "computed_attention": ("chunk_attention",),
                  "cuBLAS products": ("gemm", "nvjet")}
 
 
@@ -960,6 +982,74 @@ def time_ffn_kernel(torch, F, CF, cfg, c, flush, card):
           f" {t['plain_ms']:.4f} ms, cuBLAS chain {t['library_ms']:.4f} ms,"
           f" {t['bound_ms'] / t['ms']:.1%} of bound; {card}")
     return t
+
+
+# phi3-mini-3.8b per block: its hd 96 has no attention kernel instance, so
+# the attention loop stays generic (a dispatch miss) while the SwiGLU MLP
+# runs on chunked_ffn
+PHI3 = dict(arch="phi3-mini-3.8b", seq_len=8192, layers=2,
+            # the loosest round ratio whose block plan chunks the MLP
+            budget=0.03)
+
+
+def run_phi3_forward(torch, CA, CF, stats, M, card):
+    """phi3-mini-3.8b's per-block bf16 forward at full width, 2 layers, S
+    8192: it runs (no ValueError for hd 96), attention misses dispatch and
+    stays a generic chunk loop, chunked_ffn launches once per SwiGLU chunk
+    (counts zeroed just before, read just after).  Then float32 logits of
+    the same depth, per block against unchunked, within 1e-3."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(PHI3["arch"]).with_(n_layers=PHI3["layers"])
+    L, S = cfg.n_layers, PHI3["seq_len"]
+    out = {}
+    for dt_name in ("bfloat16", "float32"):
+        c = cfg.with_(dtype=dt_name)
+        model = M.init_params(c, torch.Generator(device="cuda").manual_seed(12), device="cuda")
+        batch = block_batch(torch, c, 12)
+        M._AC_CACHE.clear()
+        with torch.no_grad():
+            y0 = M.forward(c, model, batch)[0]
+            torch.cuda.synchronize()
+            before = stats.snapshot()
+            CA.computed_attention.launches = CA.masked_attention.launches = 0
+            CF.chunked_ffn.launches = 0
+            t0 = time.perf_counter()
+            y1 = M.forward(c.with_(autochunk_budget=PHI3["budget"]), model, batch)[0]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        d = stats.delta(before)
+        n_ffn = CF.chunked_ffn.launches
+        n_attn = CA.computed_attention.launches + CA.masked_attention.launches
+        (cf,) = M._AC_CACHE.values()
+        loops = block_loops(cf.trace(M._index_tree(model["blocks"], 0),
+                                     M.embed_inputs(c, model, batch)[0]).search())
+        err = max_logit_err(y1, y0, c.vocab_size)
+        check(bool(torch.isfinite(y1[..., :c.vocab_size]).all()), f"phi3 {dt_name}: non-finite")
+        print(f"[forward] phi3-mini-3.8b per-block {dt_name} L={L} S={S} budget"
+              f" {PHI3['budget']}: {secs:.2f}s with the block compile; dispatch hits"
+              f" {d['kernel_dispatch_hits']}, misses {d['kernel_dispatch_misses']} (hd"
+              f" {c.hd}: attention keeps its loop); chunked_ffn launches {n_ffn} = {L} layers"
+              f" x {loops.get('swiglu', (0, 0))[1]} chunks of {loops.get('swiglu', (0, 0))[0]}"
+              f" rows, attention kernel launches {n_attn}; per-block vs unchunked logits"
+              f" max_abs_err {err:.3e}{' (limit 1e-3)' if dt_name == 'float32' else ''}; {card}")
+        # bf16 chunks the attention too (a miss); the f32 plan chunks the MLP alone
+        want_misses = 1 if dt_name == "bfloat16" else 0
+        check(d["kernel_dispatch_hits"] == 1 and d["kernel_dispatch_misses"] == want_misses,
+              f"phi3 {dt_name} dispatch: {d['kernel_dispatch_hits']} hits,"
+              f" {d['kernel_dispatch_misses']} misses; want the SwiGLU hit and"
+              f" {want_misses} attention miss")
+        check(set(loops) == {"swiglu"} and n_ffn == L * loops["swiglu"][1] > 0,
+              f"phi3 {dt_name}: chunked_ffn launched {n_ffn} times, loops {loops}")
+        check(n_attn == 0, f"phi3 {dt_name}: an attention kernel launched {n_attn} times at hd 96")
+        if dt_name == "float32":
+            check(err <= 1e-3, f"phi3 fp32 per-block logits differ by {err}")
+        out[dt_name] = dict(launches=n_ffn, swiglu_chunk=loops["swiglu"][0],
+                            logits_err=err, seconds=secs)
+        del y0, y1, model, cf
+        M._AC_CACHE.clear()
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1378,10 +1468,14 @@ def main() -> int:
         print(f"[build] {name}.cu with nvcc in {seconds:.2f}s")
         ptxas_report(name, log)
     # which route each redesigned kernel took: tensor-core instructions in
-    # its SASS (the bf16 computed-mask kernel must have them)
-    routes = {"chunked_attention": route_report(build, "chunked_attention",
-                                                {"chunk_attention_wgmma_kernel": True}),
-              "paged_attention": route_report(build, "paged_attention", {})}
+    # its SASS (the bf16 attention and FFN kernels must have HGMMA, the f32
+    # ones and the mask's tile pre-pass none)
+    routes = {"chunked_attention": route_report(build, "chunked_attention", {
+                  "chunk_attention_wgmma_kernel": True,     # bf16, computed and masked
+                  "chunk_attention_kernel<": False, "mask_": False}),
+              "paged_attention": route_report(build, "paged_attention", {}),
+              "chunked_ffn": route_report(build, "chunked_ffn", {
+                  "ffn_wgmma_kernel": True, "ffn_simt_kernel": False, "cast_bf16": False})}
 
     # ---- 3. kernel against its plain version at the serving shapes -------
     cfg = get_config("gpt-paper")                         # bf16, full width
@@ -1592,6 +1686,9 @@ def main() -> int:
     ffn_timed = time_ffn_kernel(torch, F, CF, mcfg, block["chunk"], flush, card)
     del mcfg
 
+    # ---- 13b. phi3-mini-3.8b per block: hd 96 keeps its loop, the MLP not --
+    phi3 = run_phi3_forward(torch, CA, CF, stats, M, card)
+
     # ---- 14. the scan kernels against their plain versions ---------------
     # mamba2's full shape, a length the chunk does not divide, the reduced
     # config's chunk 16, and the full shape with Mamba-2's own dt and A
@@ -1681,6 +1778,7 @@ def main() -> int:
         })
     entries[1]["block_shape"] = block_attn_timed
     entries[1]["tensor_core_instructions"] = routes["chunked_attention"]
+    entries[2]["tensor_core_instructions"] = routes["chunked_attention"]
     # computed_attention also carries the per-block path: its launches there
     # are in the chunked_ffn entry's "forward" record, its time at that
     # path's chunk in its own "block_shape"
@@ -1696,6 +1794,8 @@ def main() -> int:
         "max_err_fp32": ffn_err["float32"],
         "shape": {k: ffn_timed[k] for k in ("rows", "d", "f", "bytes", "operations")},
         "forward": block,
+        "phi3_forward": phi3,
+        "tensor_core_instructions": routes["chunked_ffn"],
     })
     for kname, line, run in (("ssd_scan", 78, ssm), ("rglru_scan", 49, hyb)):
         t = scan_timed[kname]

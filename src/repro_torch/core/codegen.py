@@ -13,7 +13,7 @@ port calls it.  A port of ``repro/core/codegen.py``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 from . import stats
 from .estimation import estimate_memory
@@ -24,7 +24,7 @@ from .plan import PlanApplyError
 
 def build_fn_from_plan(baseline_graph: Graph, plan, *, rescale: bool = False,
                        record: List = None, kernel_dispatch: bool = False,
-                       mask_mode: str = "auto"):
+                       mask_mode: str = "auto", target: Optional[str] = None):
     """Apply a saved plan to ``baseline_graph`` (a trace of the function at
     the shapes to run).
 
@@ -53,7 +53,7 @@ def build_fn_from_plan(baseline_graph: Graph, plan, *, rescale: bool = False,
     if kernel_dispatch:
         from .kernel_dispatch import dispatch_graph
 
-        g = dispatch_graph(g, mask_mode=mask_mode)
+        g = dispatch_graph(g, mask_mode=mask_mode, target=target)
     return emit(g), g, estimate_memory(g)
 
 

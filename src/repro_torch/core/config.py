@@ -57,6 +57,12 @@ class ChunkConfig:
                         ``'auto'`` (dispatch when CUDA is available),
                         ``'on'`` (always; on CPU tensors the wrappers run
                         their plain versions), ``'off'`` (never)
+    ``kernel_target``   the device whose kernels a dispatched site must fit:
+                        ``'cuda'`` (a site whose shapes the CUDA kernel
+                        refuses keeps its chunk loop) or ``'cpu'`` (the plain
+                        versions take any shape); None follows the device of
+                        the compiled inputs, and for ``meta`` inputs CUDA
+                        when it is available
     ``autotune``        ``'auto'``/``'off'``; ``'on'`` waits for ROADMAP item 7
     ``mask_mode``       ``'auto'`` computes causal / sliding-window masks from
                         positions inside the kernel; ``'bool'`` streams every
@@ -83,6 +89,7 @@ class ChunkConfig:
     dim_blocklist: Tuple[int, ...] = ()
     anneal: int = 2
     kernel_dispatch: str = "auto"
+    kernel_target: Optional[str] = None
     autotune: str = "auto"
     mask_mode: str = "auto"
     mesh_spec: Optional[Any] = None
@@ -111,6 +118,9 @@ class ChunkConfig:
         if self.kernel_dispatch not in ("auto", "on", "off"):
             raise ValueError("kernel_dispatch must be 'auto', 'on', or 'off',"
                              f" got {self.kernel_dispatch!r}")
+        if self.kernel_target not in (None, "cuda", "cpu"):
+            raise ValueError(f"kernel_target must be None, 'cuda' or 'cpu', got"
+                             f" {self.kernel_target!r}")
         if self.autotune not in ("auto", "on", "off"):
             raise ValueError(f"autotune must be 'auto', 'on', or 'off', got {self.autotune!r}")
         if self.mask_mode not in ("auto", "bool"):
@@ -186,6 +196,16 @@ class ChunkConfig:
             return False
         return torch.cuda.is_available()
 
+    def resolve_kernel_target(self, device: Optional[str] = None) -> str:
+        """``'cuda'`` or ``'cpu'``: ``kernel_target`` if set, else ``device``
+        (the compiled inputs' device type) if it is one of the two, else
+        CUDA when it is available.  Never CPU for inputs on the card."""
+        if self.kernel_target is not None:
+            return self.kernel_target
+        if device in ("cuda", "cpu"):
+            return device
+        return default_kernel_target()
+
     def resolve_autotune(self) -> bool:
         """The autotuner is not ported (ROADMAP queue A item 7): never runs."""
         return False
@@ -207,14 +227,21 @@ class ChunkConfig:
         return cls(hyper=hyper or CostHyper(),
                    **{k: tuple(v) if isinstance(v, list) else v for k, v in d.items()})
 
-    def cache_token(self) -> str:
+    def cache_token(self, device: Optional[str] = None) -> str:
         """Stable digest of everything that can change a search result
-        (``kernel_dispatch`` at its resolved value)."""
+        (``kernel_dispatch`` and ``kernel_target`` at their resolved values,
+        the target for inputs on ``device``)."""
         d = self.to_dict()
         d["kernel_dispatch"] = self.resolve_kernel_dispatch()
+        d["kernel_target"] = self.resolve_kernel_target(device)
         d["autotune"] = self.resolve_autotune()
         blob = json.dumps(d, sort_keys=True, separators=(",", ":"))
         return hashlib.sha256(blob.encode()).hexdigest()
+
+
+def default_kernel_target() -> str:
+    """The dispatch target when nothing names one: the card if there is one."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,12 @@ matcher misses), or ``silu(x @ w_gate) * (x @ w_up) @ w_down``.  The kernel
 reads the fused weight's halves in place as column views.  GELU-gated
 bodies do not match.
 
+Each match is checked against the device the compiled program targets
+(``ChunkConfig.kernel_target``): for the card, a site whose shapes the
+CUDA kernel refuses (``cuda_refusal`` of the kernel's module: attention
+outside hd 32/64/128, SwiGLU off the FFN kernel's tiles) keeps its generic
+chunk loop and counts a miss; on the CPU the plain versions take any shape.
+
 A match replaces its interior nodes with one
 :class:`~repro_torch.core.lowering.KernelDispatch` record (the chunk loop
 stays); non-matching bodies keep the generic loop.  ``annotate_candidates``
@@ -53,6 +59,7 @@ import torch
 from torch.fx import Node
 
 from . import stats
+from .config import default_kernel_target
 from .graph import Graph, op_name, vdtype, vshape
 from .lowering import (
     LOOP_INDEX,
@@ -439,7 +446,9 @@ def _call_kernel(kernel, q, *args, **kwargs):
     return kernel(q, *args, **kwargs)
 
 
-def _try_attention(ctx: _BodyCtx, i_sm: int, mask_mode: str = "auto") -> Optional[Match]:
+def _try_attention(ctx: _BodyCtx, i_sm: int, mask_mode: str, target: str) -> Optional[Match]:
+    from ..kernels import chunked_attention as CA
+
     ops = ctx.ops
     sm = ops[i_sm]
     x = sm.args[0]
@@ -508,6 +517,8 @@ def _try_attention(ctx: _BodyCtx, i_sm: int, mask_mode: str = "auto") -> Optiona
     nb2, hd2, skv = vshape(bt_var)
     if nb2 != nb or hd2 != hd or vshape(x)[-2:] != (sq, skv) or _prod(vshape(x)[:-2]) != nb:
         return None
+    if target == "cuda" and CA.cuda_refusal(hd) is not None:
+        return None
 
     # forward from p to the output bmm
     cur = sm.node
@@ -574,8 +585,6 @@ def _try_attention(ctx: _BodyCtx, i_sm: int, mask_mode: str = "auto") -> Optiona
             and ctx.var_dim.get(bt_var) != 2 and ctx.var_dim.get(a_var) == 1:
         band = _mask_band(mask_var, invert)
 
-    from ..kernels import chunked_attention as CA
-
     kv_bytes = 2 * (nb // group) * skv * hd * itemsize
     if band is not None:
         band_u, band_l = band
@@ -595,6 +604,7 @@ def _try_attention(ctx: _BodyCtx, i_sm: int, mask_mode: str = "auto") -> Optiona
 
         reads = (q_chain.source, k_chain.source, v_chain.source)
         mask_bytes = 0
+        mask_ws = None
         variant = "computed"
     else:
         where_shape = vshape(where_node)
@@ -623,6 +633,7 @@ def _try_attention(ctx: _BodyCtx, i_sm: int, mask_mode: str = "auto") -> Optiona
         m_lead = vshape(mask_var)[:-2]
         mask_heads = 1 if all(s == 1 for s in m_lead) else nb
         mask_bytes = mask_heads * skv
+        mask_ws = mask_heads
         variant = "bool"
 
     # the kernel's output is the root itself unless a cast to the root's
@@ -630,8 +641,10 @@ def _try_attention(ctx: _BodyCtx, i_sm: int, mask_mode: str = "auto") -> Optiona
     out_copies = 2 if kdtype != root_dtype else 1
 
     def extra_bytes(c: int) -> int:
-        # contiguous q, K, V (and mask) operands and the kernel output
-        return kv_bytes + out_copies * nb * c * hd * itemsize + mask_bytes * c
+        # contiguous q, K, V (and mask) operands, the kernel output and (a
+        # bf16 mask) the kernel's tile classes
+        ws = 0 if mask_ws is None else CA.masked_workspace_bytes(mask_ws, c, skv, kdtype)
+        return kv_bytes + out_copies * nb * c * hd * itemsize + mask_bytes * c + ws
 
     return Match(kind="attention", interior=interior, at=i_dg2, root=root, reads=reads,
                  launch=launch, extra_bytes=extra_bytes,
@@ -719,7 +732,7 @@ def _column_part(ctx: _BodyCtx, v) -> Optional[Tuple[Node, int, int, int]]:
     return t, start, start + sizes[k], j
 
 
-def _try_swiglu(ctx: _BodyCtx, i_dn: int) -> Optional[Match]:
+def _try_swiglu(ctx: _BodyCtx, i_dn: int, target: str) -> Optional[Match]:
     """``(silu(g) * u) @ w_down`` with g and u either column parts of one
     ``x @ w_in`` (the fused form ``layers.mlp`` writes) or ``x @ w_gate`` and
     ``x @ w_up`` on the same x.  Rooted at the down projection's ``mm``."""
@@ -786,6 +799,19 @@ def _try_swiglu(ctx: _BodyCtx, i_dn: int) -> Optional[Match]:
     dtype = vdtype(x_v)
     d = vshape(x_v)[-1]
     root_dtype = vdtype(root)
+    if target == "cuda":
+        # the operands as the launch hands them over: x's chunk rows and the
+        # weights contiguous, gate and up column views of a fused w_in
+        if cols is not None:
+            g0, u0, f = cols
+            ld, offs = vshape(weights[0])[-1], (g0, u0)
+        else:
+            f = ld = vshape(weights[0])[-1]
+            offs = (0, 0)
+        why = CF.cuda_refusal(d, f, dtype, strides=((d, 1), (ld, 1), (ld, 1), (d, 1)),
+                              addresses=(0,) + tuple(o * _itemsize(dtype) for o in offs) + (0,))
+        if why is not None:
+            return None
 
     def launch(env, kw):
         x = env[x_v]
@@ -816,15 +842,19 @@ def _try_swiglu(ctx: _BodyCtx, i_dn: int) -> Optional[Match]:
 _MATCHERS = {"_softmax": "attention", "softmax": "attention", "mm": "swiglu"}
 
 
-def match_body(ctx: _BodyCtx, mask_mode: str = "auto") -> List[Match]:
-    """All non-overlapping fused-kernel matches in one loop body."""
+def match_body(ctx: _BodyCtx, mask_mode: str = "auto",
+               target: Optional[str] = None) -> List[Match]:
+    """All non-overlapping fused-kernel matches in one loop body, for kernels
+    on ``target`` ('cuda' or 'cpu'; default: the card if there is one)."""
+    target = target or default_kernel_target()
     found: List[Match] = []
     used: Set[int] = set()
     for i, op in enumerate(ctx.ops):
         kind = _MATCHERS.get(op_name(op.node))
         if kind is None:
             continue
-        m = _try_attention(ctx, i, mask_mode) if kind == "attention" else _try_swiglu(ctx, i)
+        m = (_try_attention(ctx, i, mask_mode, target) if kind == "attention"
+             else _try_swiglu(ctx, i, target))
         if m is None or m.interior & used:
             continue
         used |= m.interior
@@ -883,12 +913,12 @@ def _sync_node_inputs(node: ChunkLoopNode) -> None:
 
 
 def dispatch_node(node: ChunkLoopNode, g: Optional[Graph] = None, outer=None, *,
-                  mask_mode: str = "auto") -> int:
+                  mask_mode: str = "auto", target: Optional[str] = None) -> int:
     """Try to dispatch one chunk-loop node; returns the number of matches."""
     outer = _outer_nodes(g) if outer is None else outer
     try:
         ctx = _ctx_from_node(node, outer)
-        matches = match_body(ctx, mask_mode)
+        matches = match_body(ctx, mask_mode, target)
     except (LookupError, ValueError, TypeError, IndexError, RuntimeError):
         # an exotic body that trips the matcher keeps the generic loop
         matches = []
@@ -949,18 +979,19 @@ def _prune_graph(g: Graph) -> Graph:
                  weight_invars=set(g.weight_invars), consts=dict(g.consts), gm=g.gm)
 
 
-def dispatch_graph(g: Graph, *, mask_mode: str = "auto") -> Graph:
-    """Run kernel dispatch over every chunk loop of a rewritten graph and
-    return the graph with the nodes the kernels made dead removed."""
+def dispatch_graph(g: Graph, *, mask_mode: str = "auto", target: Optional[str] = None) -> Graph:
+    """Run kernel dispatch over every chunk loop of a rewritten graph, for
+    kernels on ``target``, and return the graph with the nodes the kernels
+    made dead removed."""
     outer = _outer_nodes(g)
     dispatched = 0
     for node in [n for n in g.nodes if is_chunk_loop(n)]:
-        dispatched += dispatch_node(node, g, outer, mask_mode=mask_mode)
+        dispatched += dispatch_node(node, g, outer, mask_mode=mask_mode, target=target)
     return _prune_graph(g) if dispatched else g
 
 
 def annotate_candidates(g: Graph, cands: Sequence[ChunkCandidate],
-                        mask_mode: str = "auto") -> None:
+                        mask_mode: str = "auto", target: Optional[str] = None) -> None:
     """Dispatch-aware selection: set ``kernel_bytes`` (the dispatched body's
     bytes at chunk c) of every candidate whose body matches a fused kernel."""
     outer = _outer_nodes(g)
@@ -968,7 +999,7 @@ def annotate_candidates(g: Graph, cands: Sequence[ChunkCandidate],
         if not any(op_name(g.nodes[i]) in _MATCHERS for i in cand.in_loop):
             continue  # nothing the matchers could take
         try:
-            matches = match_body(_ctx_from_candidate(g, cand, outer), mask_mode)
+            matches = match_body(_ctx_from_candidate(g, cand, outer), mask_mode, target)
         except (LookupError, ValueError, TypeError, IndexError, RuntimeError):
             continue
         if matches:

@@ -133,13 +133,14 @@ def choose_n(g: Graph, prof: MemoryProfile, cand: ChunkCandidate, budget_bytes: 
 
 def rank_candidates(g: Graph, prof: MemoryProfile, cands: List[ChunkCandidate],
                     budget_bytes: int, hyper: CostHyper, *, kernel_dispatch: bool = False,
-                    mask_mode: str = "auto") -> List[Tuple[ChunkCandidate, int, int, float]]:
+                    mask_mode: str = "auto",
+                    target: Optional[str] = None) -> List[Tuple[ChunkCandidate, int, int, float]]:
     """Score every candidate; return [(cand, n, est_peak, cost)] best-first.
 
     With ``kernel_dispatch=True`` selection is dispatch-aware: candidates
-    whose body matches a fused kernel get their kernel bytes set, so they
-    are charged the kernel's own bytes instead of the chunk-slice
-    intermediates it never materializes.
+    whose body matches a fused kernel on ``target`` get their kernel bytes
+    set, so they are charged the kernel's own bytes instead of the
+    chunk-slice intermediates it never materializes.
     """
     stats.bump("rank_calls")
     stats.bump("selection_passes")
@@ -148,7 +149,7 @@ def rank_candidates(g: Graph, prof: MemoryProfile, cands: List[ChunkCandidate],
     if kernel_dispatch:
         from .kernel_dispatch import annotate_candidates
 
-        annotate_candidates(g, cands, mask_mode)
+        annotate_candidates(g, cands, mask_mode, target)
     total_flops = graph_flops(g)
     max_density = max(c.density for c in cands)
     env = _selection_env(g, prof)

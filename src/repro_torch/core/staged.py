@@ -147,6 +147,11 @@ def _leaf_sig(x: torch.Tensor) -> Tuple[Tuple[int, ...], str]:
     return tuple(int(s) for s in x.shape), str(x.dtype)
 
 
+def _leaf_key(x: torch.Tensor) -> Tuple[Tuple[int, ...], str, str]:
+    """Shape, dtype and device type: a compile's plan can depend on all three."""
+    return _leaf_sig(x) + (x.device.type,)
+
+
 def _package_result(*, fn: Callable, out_spec_box: List[Any], plan: List[StageRecord],
                     plan_stages: List[PlanStage], baseline_peak: int, final_peak: int,
                     budget_bytes: int, io_bytes: int, weight_bytes: int, elapsed_s: float,
@@ -171,7 +176,8 @@ def _package_result(*, fn: Callable, out_spec_box: List[Any], plan: List[StageRe
 # The search pipeline (the paper's chunk-search + chunk-selection passes)
 # ---------------------------------------------------------------------------
 
-def _search_loop(g: Graph, prof: MemoryProfile, budget_bytes: int, config: ChunkConfig):
+def _search_loop(g: Graph, prof: MemoryProfile, budget_bytes: int, config: ChunkConfig,
+                 target: str):
     """Greedy staged search with beam verification (paper Alg. 1).
 
     Each accepted stage is a pure graph rewrite verified by re-estimating
@@ -186,7 +192,8 @@ def _search_loop(g: Graph, prof: MemoryProfile, budget_bytes: int, config: Chunk
         cands = search_chunks(g, prof, window=config.window, allow_hoist=config.allow_hoist,
                               dim_blocklist=frozenset(config.dim_blocklist))
         ranked = rank_candidates(g, prof, cands, budget_bytes, config.hyper,
-                                 kernel_dispatch=kd, mask_mode=config.mask_mode)
+                                 kernel_dispatch=kd, mask_mode=config.mask_mode,
+                                 target=target)
         if config.verbose:
             print(f"[autochunk] stage {stage}: peak={prof.peak_bytes / 2**20:.1f}MiB"
                   f" budget={budget_bytes / 2**20:.1f}MiB candidates={len(ranked)}")
@@ -227,14 +234,14 @@ def _search_loop(g: Graph, prof: MemoryProfile, budget_bytes: int, config: Chunk
     return g, prof, records, pstages
 
 
-def _search_with_anneal(g0, prof0, budget_bytes, config):
+def _search_with_anneal(g0, prof0, budget_bytes, config, target):
     """Search, then budget-anneal: a missed target retries the whole
     pipeline against a tighter internal budget and keeps whichever plan
     estimates lower."""
-    g, prof, records, pstages = _search_loop(g0, prof0, budget_bytes, config)
+    g, prof, records, pstages = _search_loop(g0, prof0, budget_bytes, config, target)
     if prof.peak_bytes > budget_bytes and config.anneal > 0 and pstages:
         retry = _search_with_anneal(g0, prof0, max(budget_bytes // 2, 1),
-                                    config.with_(anneal=config.anneal - 1))
+                                    config.with_(anneal=config.anneal - 1), target)
         if retry[1].peak_bytes < prof.peak_bytes:
             return retry
     return g, prof, records, pstages
@@ -280,6 +287,11 @@ class Traced:
         self.search_s = 0.0               # set by search(); stays 0 on a replay
         self.baseline_peak: int = self.profile.peak_bytes
         self.budget_bytes: int = config.resolve_budget(self.baseline_peak)
+        # the device whose kernels dispatch must fit: the inputs' own unless
+        # the config names one
+        devices = {x.device.type for x in self.flat_args if x.device.type != "meta"}
+        self.device: Optional[str] = devices.pop() if len(devices) == 1 else None
+        self.target: str = config.resolve_kernel_target(self.device)
 
     @property
     def memory_profile(self) -> MemoryProfile:
@@ -297,7 +309,7 @@ class Traced:
             "weights": list(self.weight_flat),
             "sig": [[list(bucketer.bucket_shape(shape)), dtype]
                     for shape, dtype in map(_leaf_sig, self.flat_args)],
-            "config": self.cf.config.cache_token(),
+            "config": self.cf.config.cache_token(self.device),
         }
         blob = json.dumps(doc, sort_keys=True, separators=(",", ":"))
         return hashlib.sha256(blob.encode()).hexdigest()
@@ -319,11 +331,12 @@ class Traced:
 
         t0 = time.perf_counter()
         lowered, prof, records, pstages = _search_with_anneal(
-            self.graph, self.profile, self.budget_bytes, config)
+            self.graph, self.profile, self.budget_bytes, config, self.target)
         self.search_s = time.perf_counter() - t0
         if pstages:
             if config.resolve_kernel_dispatch():
-                lowered = dispatch_graph(lowered, mask_mode=config.mask_mode)
+                lowered = dispatch_graph(lowered, mask_mode=config.mask_mode,
+                                         target=self.target)
                 prof = estimate_memory(lowered)
             cur = emit(lowered)
         else:  # nothing chunked: the function itself is the program
@@ -345,7 +358,8 @@ class Traced:
         try:
             fn, g, prof = build_fn_from_plan(
                 self.graph, saved, rescale=True, record=rec,
-                kernel_dispatch=config.resolve_kernel_dispatch(), mask_mode=config.mask_mode)
+                kernel_dispatch=config.resolve_kernel_dispatch(), mask_mode=config.mask_mode,
+                target=self.target)
         except PlanApplyError:
             stats.bump("plan_replay_failures")
             return None
@@ -487,7 +501,7 @@ class ChunkedFunction:
 
     def _shape_key(self, args) -> Any:
         leaves, spec = pytree.tree_flatten(tuple(args))
-        return (str(spec), tuple(_leaf_sig(x) for x in leaves))
+        return (str(spec), tuple(_leaf_key(x) for x in leaves))
 
     def __call__(self, *args):
         self.counters["calls"] += 1

@@ -8,7 +8,9 @@ chunk-loop body for one of two functions, in the JAX package's flat layout:
   causal / sliding-window predicate is computed from positions.  Kv tiles the
   band cannot reach are never visited.
 * :func:`masked_attention` -- the same with an explicit bool ``mask``
-  (Nm, Sq, Skv), Nm in {1, N*group} (True = attend); nothing is skipped.
+  (Nm, Sq, Skv), Nm in {1, N*group} (True = attend).  In bf16 the kernel
+  skips the kv tiles where a query tile's mask is all False, unless a row
+  of that tile has no live key at all (it averages every V).
 
 Query head ``n`` attends with kv head ``n // group`` (native GQA: K and V are
 not repeated).  Masked logits are ``-1e30`` and the output is
@@ -21,10 +23,12 @@ TPU kernel does at its own block sizes.
 On a CUDA tensor each wrapper launches the hand-written kernel in
 ``csrc/chunked_attention.cu`` (or raises); on a CPU tensor it runs the plain
 PyTorch version beside it.  Each wrapper counts its kernel launches in
-``.launches``.  The source routes by dtype: bf16 :func:`computed_attention`
-runs on the tensor cores (wgmma, P in registers as bf16 hi + lo); f32 and
-:func:`masked_attention` run on CUDA-core f32 FMAs.  Both kernels walk the
-same 64 x 64 tiles (:data:`BLOCK_Q`, :data:`BLOCK_KV`).
+``.launches``.  The source routes by dtype: bf16 runs on the tensor cores
+(wgmma, P in registers as bf16 hi + lo; a mask is first classified by
+tiles into a workspace of :func:`masked_workspace_bytes`); f32 runs on
+CUDA-core f32 FMAs.  Both kernels walk the same 64 x 64 tiles
+(:data:`BLOCK_Q`, :data:`BLOCK_KV`).  :func:`cuda_refusal` states the head
+dims the kernels take, for the wrappers and for kernel dispatch.
 """
 from __future__ import annotations
 
@@ -136,7 +140,7 @@ def _kernels():
     computed.restype = ctypes.c_int
     masked = lib.masked_attention_fwd
     masked.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
     masked.restype = ctypes.c_int
     return computed, masked
 
@@ -163,12 +167,32 @@ def _check(q, k, v, group, mask=None):
                              f" {mask.dtype} {tuple(mask.shape)}")
 
 
+def masked_workspace_bytes(mask_heads: int, Sq: int, Skv: int, dtype: torch.dtype) -> int:
+    """Device bytes a CUDA :func:`masked_attention` call allocates besides
+    its output: for bf16, the mask's tile classes, visit lists and 64 x 64
+    bit tiles (about an eighth of the mask); f32 allocates none."""
+    if dtype == torch.float32:
+        return 0
+    n_qt, n_kt = -(-Sq // BLOCK_Q), -(-Skv // BLOCK_KV)
+    tiles = mask_heads * n_qt * n_kt
+    return tiles * (64 * 8 + 4 + 1) + mask_heads * n_qt * 4 + mask_heads * Sq
+
+
+def cuda_refusal(hd: int) -> Optional[str]:
+    """Why the CUDA kernels (both of them) refuse head dim ``hd``, or None
+    if they take it.  The wrappers raise with this message on a CUDA tensor;
+    kernel dispatch refuses a site targeted at the card with it."""
+    if hd not in _HEAD_DIMS:
+        return f"the CUDA kernel takes hd in {_HEAD_DIMS}, got {hd}"
+    return None
+
+
 def _cuda_ready(q, k, v, mask=None):
     """What the CUDA kernels take beyond :func:`_check`; raises on anything
     else, the device last."""
-    hd = q.shape[-1]
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes hd in {_HEAD_DIMS}, got {hd}")
+    why = cuda_refusal(q.shape[-1])
+    if why is not None:
+        raise ValueError(why)
     for name, t in (("q", q), ("k", k), ("v", v), ("mask", mask)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -229,9 +253,12 @@ def masked_attention(q, k, v, mask, *, scale: float, group: int = 1,
     out = torch.empty_like(q)
     if out.numel() == 0 or Skv == 0:
         return out.zero_()
+    ws_bytes = masked_workspace_bytes(mask.shape[0], Sq, Skv, q.dtype)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=q.device) if ws_bytes else None
     err = _kernels()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
                         out.data_ptr(), Nq, group, Sq, Skv, hd, mask.shape[0],
                         float(scale), _DTYPE_CODES[q.dtype],
+                        0 if ws is None else ws.data_ptr(), ws_bytes,
                         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"masked_attention kernel launch failed: CUDA error {err}")

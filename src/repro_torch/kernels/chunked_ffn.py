@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -77,22 +78,40 @@ def _check(x, w_gate, w_up, w_down):
         raise TypeError(f"x must be one of {list(_DTYPE_CODES)}, got {x.dtype}")
 
 
+def cuda_refusal(d: int, f: int, dtype: torch.dtype, strides=None,
+                 addresses=None) -> Optional[str]:
+    """Why the CUDA kernel refuses these operands, or None if it takes them.
+
+    ``strides``: the (row, column) strides of x, w_gate, w_up and w_down in
+    elements; ``addresses``: their byte addresses, or offsets from a 16-byte
+    aligned base.  Either omitted means contiguous and aligned.  The wrapper
+    raises with this message on a CUDA tensor; kernel dispatch refuses a
+    SwiGLU site targeted at the card with it.
+    """
+    if d % D_STEP or f % F_TILE[dtype]:
+        return (f"the CUDA kernel takes d a multiple of {D_STEP} and f a multiple of"
+                f" {F_TILE[dtype]} for {dtype}; got d {d}, f {f}")
+    names = ("x", "w_gate", "w_up", "w_down")
+    for name, st in zip(names, strides or ()):
+        if name == "w_down" and tuple(st) != (d, 1):
+            return f"w_down must be contiguous, got strides {tuple(st)}"
+        if st[1] != 1 or st[0] % 8:
+            return (f"{name} must have unit column stride and a row stride that is a"
+                    f" multiple of 8, got strides {tuple(st)}")
+    for name, a in zip(names, addresses or ()):
+        if a % 16:
+            return f"{name} must be 16-byte aligned"
+    return None
+
+
 def _cuda_ready(x, w_gate, w_up, w_down):
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    d, f = w_gate.shape
-    if d % D_STEP or f % F_TILE[x.dtype]:
-        raise ValueError(f"the CUDA kernel takes d a multiple of {D_STEP} and f a multiple"
-                         f" of {F_TILE[x.dtype]} for {x.dtype}; got d {d}, f {f}")
-    for name, t in (("x", x), ("w_gate", w_gate), ("w_up", w_up)):
-        if t.stride(1) != 1 or t.stride(0) % 8:
-            raise ValueError(f"{name} must have unit column stride and a row stride that"
-                             f" is a multiple of 8, got strides {t.stride()}")
-    if not w_down.is_contiguous():
-        raise ValueError("w_down must be contiguous")
-    for name, t in (("x", x), ("w_gate", w_gate), ("w_up", w_up), ("w_down", w_down)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    ts = (x, w_gate, w_up, w_down)
+    why = cuda_refusal(*w_gate.shape, x.dtype, strides=[t.stride() for t in ts],
+                       addresses=[t.data_ptr() for t in ts])
+    if why is not None:
+        raise ValueError(why)
 
 
 def chunked_ffn(x, w_gate, w_up, w_down, *, block_s: int = 128, block_f: int = 512,

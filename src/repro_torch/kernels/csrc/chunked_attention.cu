@@ -5,7 +5,8 @@
 //     sliding-window predicate is computed from positions, fully masked kv
 //     blocks are skipped;
 //   * _masked_attn_kernel (wrapper masked_attention): an explicit bool mask
-//     (Nm, Sq, Skv), Nm in {1, N*group}, nothing skipped.
+//     (Nm, Sq, Skv), Nm in {1, N*group}; the Pallas kernel visits every kv
+//     block.
 // Both compute, per flat query head n and query row a,
 //   out[n, a] = softmax_j(where(live(a, j), scale * q[n, a] . k[n/group, j], -1e30)) @ v[n/group]
 // with an online softmax in f32, and finish with acc / max(l, 1e-30), so a row
@@ -16,16 +17,20 @@
 // against 8192 keys, hd 64 or 128) each staged K/V tile is reused by 64 query
 // rows, so the work is 4*hd operations per live (query, key) pair against a
 // few bytes per pair: operations bound, and in bf16 only the tensor cores
-// reach that bound.
+// reach that bound.  A bool mask adds a byte per (query, key) pair and
+// mask head, read once; its dead pairs need no operation at all.
 //
 // Routing (in dispatch() below, by dtype; not a fallback):
-//   * computed_attention_fwd, bf16  -> chunk_attention_wgmma_kernel: both
-//     products on the tensor cores (wgmma), K/V tiles in a two-stage cp.async
-//     ring, P kept in registers.  hd 32, 64, 128; anything else is refused.
-//   * computed_attention_fwd, f32, and masked_attention_fwd (f32 and bf16)
-//     -> chunk_attention_kernel: CUDA-core f32 FMAs.  f32 stays off the TF32
-//     tensor cores because TF32 keeps about three decimal digits, short of the
-//     1e-4 that the f32 checks hold the kernel to.
+//   * bf16, both entry points -> chunk_attention_wgmma_kernel<hd, masked>:
+//     both products on the tensor cores (wgmma), K/V tiles in a two-stage
+//     cp.async ring, P kept in registers.  hd 32, 64, 128; anything else is
+//     refused (chunked_attention.py cuda_refusal, which kernel dispatch
+//     also asks).  A mask is first classified by tiles (below).
+//   * f32, both entry points -> chunk_attention_kernel: CUDA-core f32 FMAs.
+//     f32 stays off the TF32 tensor cores because TF32 keeps about three
+//     decimal digits, short of the 1e-4 that the f32 checks hold the kernel
+//     to.  The f32 masked kernel reads the mask beside K and V and visits
+//     every tile.
 //
 // Shared by both kernels (the plain version's band_tiles() assumes them):
 // * One 128-thread block per (64-query tile, flat head n); the kv walk is a
@@ -46,8 +51,7 @@
 // float4); each thread owns 4 query rows and computes a 4 x 8 block of logits,
 // the row max and sum are reduced over the 8 lanes that share a row with xor
 // shuffles, P goes through shared memory, and each thread accumulates its
-// 4 x hd/8 block of P @ V.  The masked kernel reads the mask bytes of each
-// tile beside K and V and visits every tile.
+// 4 x hd/8 block of P @ V.
 //
 // chunk_attention_wgmma_kernel (tensor cores, bf16):
 // * The block is one warpgroup; 64 query rows are exactly wgmma's M.
@@ -77,6 +81,29 @@
 //   (Q, 2 x K, 2 x V): 80 KB at hd 128, so two blocks fit on an SM.
 // * Query tiles are issued from the last to the first: under a causal band
 //   the last tiles see the most keys, so the long blocks start first.
+//
+// The bool mask on the tensor cores (masked = true).  The CUDA-core kernel
+// visited every tile and read the mask bytes of each (the gpt-paper chunk:
+// 403 M pairs a head where the causal band holds 302 M, and 12 heads
+// re-reading one 33.5 MB mask).  Here a pre-pass reads the mask once:
+// * mask_classify_kernel, one block per (kv tile, query tile, mask head):
+//   packs the tile into 64 rows of 64 bits and classes it dead (no live
+//   entry), full (every in-range entry live) or partial; marks the rows
+//   that have a live key somewhere.
+// * mask_list_kernel, one warp per (query tile, mask head): the kv tiles to
+//   visit, in order, each with its class.  Dead tiles are dropped: for a
+//   row with a live key that is exact, since exp(-1e30 - m) is 0 in f32 once
+//   the row has seen a live key, and a masked entry seen before the first
+//   live key is wiped by the rescale exp(-1e30 - m_new) = 0.  A query tile
+//   that holds a row with no live key at all keeps every kv tile (its dead
+//   ones masked whole), so that row still averages every V.
+// * The main kernel then walks its list: a full tile needs no mask, a
+//   partial one 16 bytes of bits a thread (two rows, loaded while the
+//   products run), a dead one in a kept list masks everything.  All 12
+//   gpt-paper heads share one list and one set of bits (Nm = 1).
+// The pre-pass's workspace (bits, lists, classes; about an eighth of the
+// mask) is allocated by the wrapper and charged by kernel dispatch
+// (chunked_attention.py masked_workspace_bytes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,10 +119,6 @@ constexpr int kRows = 4;           // query rows per thread
 constexpr int kCols = 8;           // keys per thread in the logits block
 constexpr float kNegInf = -1e30f;  // the masking value of the reference
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 __host__ __device__ constexpr int smem_floats(int hd) {
   return hd * (kBQ + kPad) + hd * (kBKV + kPad) + kBKV * hd + kBKV * (kBQ + kPad);
@@ -106,13 +129,13 @@ __device__ __forceinline__ long long floor_div(long long a, long long b) {
   return a >= 0 ? a / b : -((-a + b - 1) / b);
 }
 
-template <typename T, int HD, bool MASKED>
+template <int HD, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
-chunk_attention_kernel(const T* __restrict__ q,             // (N*group, Sq, HD)
-                       const T* __restrict__ k,             // (N, Skv, HD)
-                       const T* __restrict__ v,             // (N, Skv, HD)
+chunk_attention_kernel(const float* __restrict__ q,         // (N*group, Sq, HD)
+                       const float* __restrict__ k,         // (N, Skv, HD)
+                       const float* __restrict__ v,         // (N, Skv, HD)
                        const uint8_t* __restrict__ mask,    // (Nm, Sq, Skv) or null
-                       T* __restrict__ out,                 // (N*group, Sq, HD)
+                       float* __restrict__ out,             // (N*group, Sq, HD)
                        int group, int Sq, int Skv, int q_offset, int causal,
                        int window, int mask_heads, float scale) {
   constexpr int kQP = kBQ + kPad;
@@ -133,15 +156,15 @@ chunk_attention_kernel(const T* __restrict__ q,             // (N*group, Sq, HD)
   const int q0 = blockIdx.x * kBQ;
   const int q_end = min(q0 + kBQ, Sq);
 
-  const T* qn = q + (size_t)n * Sq * HD;
-  const T* kn = k + (size_t)(n / group) * Skv * HD;
-  const T* vn = v + (size_t)(n / group) * Skv * HD;
+  const float* qn = q + (size_t)n * Sq * HD;
+  const float* kn = k + (size_t)(n / group) * Skv * HD;
+  const float* vn = v + (size_t)(n / group) * Skv * HD;
   const uint8_t* mn = MASKED ? mask + (size_t)(mask_heads == 1 ? 0 : n) * Sq * Skv : nullptr;
 
   // stage the query tile (zeros past Sq)
   for (int e = tid; e < kBQ * HD; e += kThreads) {
     const int r = e / HD, d = e % HD;
-    qT[d * kQP + r] = (q0 + r < Sq) ? to_float(qn[(size_t)(q0 + r) * HD + d]) : 0.f;
+    qT[d * kQP + r] = (q0 + r < Sq) ? qn[(size_t)(q0 + r) * HD + d] : 0.f;
   }
 
   // the kv tiles this block visits
@@ -174,8 +197,8 @@ chunk_attention_kernel(const T* __restrict__ q,             // (N*group, Sq, HD)
       const int c = e / HD, d = e % HD;
       const bool in = k0 + c < Skv;
       const size_t off = (size_t)(k0 + c) * HD + d;
-      kT[d * kKP + c] = in ? to_float(kn[off]) : 0.f;
-      vS[c * HD + d] = in ? to_float(vn[off]) : 0.f;
+      kT[d * kKP + c] = in ? kn[off] : 0.f;
+      vS[c * HD + d] = in ? vn[off] : 0.f;
     }
     __syncthreads();
 
@@ -277,7 +300,7 @@ chunk_attention_kernel(const T* __restrict__ q,             // (N*group, Sq, HD)
     }
   }
 
-  T* on = out + (size_t)n * Sq * HD;
+  float* on = out + (size_t)n * Sq * HD;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int row = q0 + ty * kRows + i;
@@ -287,7 +310,7 @@ chunk_attention_kernel(const T* __restrict__ q,             // (N*group, Sq, HD)
     for (int c4 = 0; c4 < HD / 32; ++c4)
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        store(&on[(size_t)row * HD + 32 * c4 + 4 * tx + u], acc[i][4 * c4 + u] * inv);
+        on[(size_t)row * HD + 32 * c4 + 4 * tx + u] = acc[i][4 * c4 + u] * inv;
   }
 }
 
@@ -495,14 +518,89 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
   lo = bits(r);
 }
 
-template <int HD>
+// Tile classes of a bool mask, per (mask head, query tile, kv tile): no
+// live entry, every in-range entry live, or some of each.
+constexpr int kDead = 0, kFull = 1, kPartial = 2;
+
+// What mask_classify_kernel and mask_list_kernel leave for the bf16 masked
+// kernel: per (mask head, query tile) the kv tiles to visit, each as
+// (tile << 2) | class, and their count; per visited partial tile 64 rows of
+// 64 bits (bit j of row r: key 64 t + j of row 64 qt + r is live).
+struct MaskTiles {
+  const int* list;                  // (heads, n_qt, n_kt)
+  const int* count;                 // (heads, n_qt)
+  const unsigned long long* bits;   // (heads, n_qt, n_kt, 64)
+  int heads, n_qt, n_kt;
+};
+
+// One block of 256 threads per (kv tile, query tile, mask head): thread t
+// reads keys 16 (t % 4) .. + 15 of tile row t / 4, packs them into bits,
+// and the block votes the tile's class.  A row with a live key anywhere
+// marks row_live (zeroed before).
+__global__ void __launch_bounds__(256)
+mask_classify_kernel(const uint8_t* __restrict__ mask, int Sq, int Skv, int n_qt, int n_kt,
+                     uint8_t* __restrict__ cls, unsigned long long* __restrict__ bits,
+                     uint8_t* __restrict__ row_live) {
+  const int t = blockIdx.x, qt = blockIdx.y, hm = blockIdx.z;
+  const int r = threadIdx.x >> 2, seg = threadIdx.x & 3;
+  const int row = qt * kBQ + r, k0 = t * kBKV + seg * 16;
+  const int n_in = row < Sq ? max(0, min(16, Skv - k0)) : 0;   // in-range keys
+  uint32_t b = 0;
+  if (n_in > 0) {
+    const uint8_t* m = mask + ((size_t)hm * Sq + row) * Skv + k0;
+    if (n_in == 16 && (reinterpret_cast<uintptr_t>(m) & 15) == 0) {
+      const uint4 w = *reinterpret_cast<const uint4*>(m);
+      const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int e = 0; e < 16; ++e) b |= (uint32_t)(((words[e >> 2] >> (8 * (e & 3))) & 0xFF) != 0) << e;
+    } else {
+      for (int e = 0; e < n_in; ++e) b |= (uint32_t)(m[e] != 0) << e;
+    }
+  }
+  const uint32_t in_range = n_in == 16 ? 0xFFFFu : (1u << n_in) - 1;
+  const int any = __syncthreads_or(b != 0);
+  const int all = __syncthreads_and(b == in_range);
+  const size_t tile = ((size_t)hm * n_qt + qt) * n_kt + t;
+  reinterpret_cast<uint16_t*>(bits + tile * 64 + r)[seg] = (uint16_t)b;
+  if (b != 0) row_live[(size_t)hm * Sq + row] = 1;
+  if (threadIdx.x == 0) cls[tile] = any ? (all ? kFull : kPartial) : kDead;
+}
+
+// One warp per (query tile, mask head): the kv tiles its blocks visit, in
+// order.  Dead tiles are dropped, unless a row of the query tile has no
+// live key at all: that row gets the mean of every V, as the reference
+// gives, so such a tile keeps every kv tile (its dead ones masked whole).
+__global__ void __launch_bounds__(32)
+mask_list_kernel(const uint8_t* __restrict__ cls, const uint8_t* __restrict__ row_live, int Sq,
+                 int n_qt, int n_kt, int* __restrict__ list, int* __restrict__ count) {
+  const int qt = blockIdx.x, hm = blockIdx.y, lane = threadIdx.x;
+  bool empty_row = false;
+  for (int r = lane; r < kBQ; r += 32) {
+    const int row = qt * kBQ + r;
+    empty_row |= row < Sq && row_live[(size_t)hm * Sq + row] == 0;
+  }
+  const bool keep_all = __any_sync(0xffffffffu, empty_row);
+  const size_t base = ((size_t)hm * n_qt + qt) * n_kt;
+  int n = 0;
+  for (int t0 = 0; t0 < n_kt; t0 += 32) {
+    const int t = t0 + lane;
+    const int c = t < n_kt ? cls[base + t] : kDead;
+    const bool keep = t < n_kt && (keep_all || c != kDead);
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (keep) list[base + n + __popc(ballot & ((1u << lane) - 1))] = (t << 2) | c;
+    n += __popc(ballot);
+  }
+  if (lane == 0) count[(size_t)hm * n_qt + qt] = n;
+}
+
+template <int HD, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
 chunk_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,   // (N*group, Sq, HD)
                              const __nv_bfloat16* __restrict__ k,   // (N, Skv, HD)
                              const __nv_bfloat16* __restrict__ v,   // (N, Skv, HD)
                              __nv_bfloat16* __restrict__ out,       // (N*group, Sq, HD)
                              int group, int Sq, int Skv, int q_offset, int causal, int window,
-                             float scale_log2) {
+                             float scale_log2, MaskTiles mt) {
   static_assert(kBQ == 64 && kBKV == 64 && kThreads == 128,
                 "one warpgroup, one wgmma M of query rows, 64-key tiles");
   using Tl = Tile<HD>;
@@ -514,22 +612,36 @@ chunk_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,   // (N*group,
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int n = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int q0 = qt * kBQ;
   const int q_end = min(q0 + kBQ, Sq);
   const __nv_bfloat16* qn = q + (size_t)n * Sq * HD;
   const __nv_bfloat16* kn = k + (size_t)(n / group) * Skv * HD;
   const __nv_bfloat16* vn = v + (size_t)(n / group) * Skv * HD;
 
-  const int n_tiles = (Skv + kBKV - 1) / kBKV;
-  int t_lo = 0, t_hi = n_tiles;
-  if (causal) {
-    const long long last = (long long)q_offset + q_end - 1;
-    t_hi = last < 0 ? 0 : (int)min((long long)n_tiles, last / kBKV + 1);
+  // the kv tiles this block visits: the listed ones (masked), or the band's
+  // contiguous range [t_lo, t_hi) (computed)
+  int t_lo = 0, n_visit;
+  const int* visit = nullptr;
+  const unsigned long long* tile_bits = nullptr;
+  if constexpr (MASKED) {
+    const size_t at = (size_t)(mt.heads == 1 ? 0 : n) * mt.n_qt + qt;
+    visit = mt.list + at * mt.n_kt;
+    tile_bits = mt.bits + at * mt.n_kt * 64;
+    n_visit = mt.count[at];
+  } else {
+    const int n_tiles = (Skv + kBKV - 1) / kBKV;
+    int t_hi = n_tiles;
+    if (causal) {
+      const long long last = (long long)q_offset + q_end - 1;
+      t_hi = last < 0 ? 0 : (int)min((long long)n_tiles, last / kBKV + 1);
+    }
+    if (window > 0) {
+      t_lo = (int)max(0LL, floor_div((long long)q_offset + q0 - (window - 1), kBKV));
+    }
+    n_visit = max(0, t_hi - t_lo);
   }
-  if (window > 0) {
-    t_lo = (int)max(0LL, floor_div((long long)q_offset + q0 - (window - 1), kBKV));
-  }
-  const int n_visit = max(0, t_hi - t_lo);
+  auto tile_of = [&](int i) { return MASKED ? visit[i] >> 2 : t_lo + i; };
 
   // this thread's accumulator rows and columns (wgmma's D layout): rows
   // r_lo and r_lo + 8; columns 8 j + c0, 8 j + c0 + 1 of each 8-column chunk j
@@ -552,16 +664,27 @@ chunk_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,   // (N*group,
   auto k_slot = [&](int i) { return base + (1 + (i & 1)) * Tl::kBytes; };
   auto v_slot = [&](int i) { return base + (3 + (i & 1)) * Tl::kBytes; };
   if (n_visit > 0) {
+    const int t0 = tile_of(0);
     Tl::load(sQ, qn + (size_t)q0 * HD, Sq - q0, tid);
-    Tl::load(k_slot(0), kn + (size_t)t_lo * kBKV * HD, Skv - t_lo * kBKV, tid);
+    Tl::load(k_slot(0), kn + (size_t)t0 * kBKV * HD, Skv - t0 * kBKV, tid);
   }
   cp_async_commit();
 
   uint32_t p_hi[4][4] = {}, p_lo[4][4] = {};   // P of the previous tile, as A fragments
   for (int it = 0; it < n_visit; ++it) {
-    const int k0 = (t_lo + it) * kBKV;
+    const int entry = MASKED ? visit[it] : 0;
+    const int k0 = tile_of(it) * kBKV;
     if (it + 1 < n_visit) {
-      Tl::load(k_slot(it + 1), kn + (size_t)(k0 + kBKV) * HD, Skv - k0 - kBKV, tid);
+      const int k1 = tile_of(it + 1) * kBKV;
+      Tl::load(k_slot(it + 1), kn + (size_t)k1 * HD, Skv - k1, tid);
+    }
+    // a partial tile's mask bits of this thread's two rows, read while the
+    // products run
+    unsigned long long row_bits[2] = {0ull, 0ull};
+    if (MASKED && (entry & 3) == kPartial) {
+      const unsigned long long* tb = tile_bits + (size_t)(entry >> 2) * 64;
+      row_bits[0] = tb[r_lo];
+      row_bits[1] = tb[r_lo + 8];
     }
     Tl::load(v_slot(it), vn + (size_t)k0 * HD, Skv - k0, tid);
     cp_async_commit();
@@ -590,20 +713,27 @@ chunk_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,   // (N*group,
     pin(s);
 
     // scale to base 2, mask, online softmax (while P V runs)
-    const bool cut = (causal && (long long)(k0 + kBKV - 1) > (long long)q_offset + q0) ||
-                     (window > 0 && (long long)q_offset + q_end - 1 - k0 >= window);
+    const bool cut = MASKED ? (entry & 3) != kFull
+                            : (causal && (long long)(k0 + kBKV - 1) > (long long)q_offset + q0) ||
+                                  (window > 0 && (long long)q_offset + q_end - 1 - k0 >= window);
     const bool edge = k0 + kBKV > Skv;
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int r = (i >> 1) & 1;                      // 0: row r_lo, 1: row r_lo + 8
-      const int kpos = k0 + 8 * (i >> 2) + c0 + (i & 1);
+      const int col = 8 * (i >> 2) + c0 + (i & 1);
+      const int kpos = k0 + col;
       float x = s[i] * scale_log2;
       if (cut) {
-        const long long qpos = (long long)q_offset + q0 + r_lo + 8 * r;
-        bool live = true;
-        if (causal) live = live && (long long)kpos <= qpos;
-        if (window > 0) live = live && qpos - kpos < window;
+        bool live;
+        if constexpr (MASKED) {
+          live = (row_bits[r] >> col) & 1;             // a dead tile's bits are all 0
+        } else {
+          const long long qpos = (long long)q_offset + q0 + r_lo + 8 * r;
+          live = true;
+          if (causal) live = live && (long long)kpos <= qpos;
+          if (window > 0) live = live && qpos - kpos < window;
+        }
         if (!live) x = kNegInf;
       }
       if (edge && kpos >= Skv) x = -INFINITY;          // not a key: weight 0
@@ -674,63 +804,95 @@ chunk_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,   // (N*group,
   }
 }
 
-template <int HD>
+template <int HD, bool MASKED>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int n_q_heads,
                          int group, int Sq, int Skv, int q_offset, int causal, int window,
-                         float scale, cudaStream_t stream) {
+                         float scale, MaskTiles mt, cudaStream_t stream) {
   constexpr int bytes = 5 * Tile<HD>::kBytes + 1024;   // + alignment slack
   static bool configured = false;   // the attribute is per function, set once
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(chunk_attention_wgmma_kernel<HD>,
+    const cudaError_t e = cudaFuncSetAttribute(chunk_attention_wgmma_kernel<HD, MASKED>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                bytes);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, n_q_heads);
-  chunk_attention_wgmma_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+  chunk_attention_wgmma_kernel<HD, MASKED><<<grid, kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), group, Sq, Skv,
-      q_offset, causal, window, scale * 1.4426950408889634f);
+      q_offset, causal, window, scale * 1.4426950408889634f, mt);
   return cudaGetLastError();
 }
 
-template <typename T, int HD, bool MASKED>
+// Workspace of the bf16 masked kernel, in this order: tile bits, visit
+// lists, their counts, tile classes, row_live.  The wrapper allocates it
+// (kernels/chunked_attention.py masked_workspace_bytes, the same sum).
+size_t mask_workspace_bytes(int heads, int Sq, int Skv) {
+  const size_t tiles = (size_t)heads * ((Sq + kBQ - 1) / kBQ) * ((Skv + kBKV - 1) / kBKV);
+  return tiles * (64 * 8 + 4 + 1) + (size_t)heads * ((Sq + kBQ - 1) / kBQ) * 4 +
+         (size_t)heads * Sq;
+}
+
+// classify the mask's tiles and list each query tile's visits
+cudaError_t prepare_mask(const void* mask, int heads, int Sq, int Skv, void* workspace,
+                         MaskTiles* mt, cudaStream_t stream) {
+  const int n_qt = (Sq + kBQ - 1) / kBQ, n_kt = (Skv + kBKV - 1) / kBKV;
+  const size_t tiles = (size_t)heads * n_qt * n_kt;
+  uint8_t* ws = static_cast<uint8_t*>(workspace);
+  auto* bits = reinterpret_cast<unsigned long long*>(ws);
+  int* list = reinterpret_cast<int*>(ws + tiles * 64 * 8);
+  int* count = list + tiles;
+  uint8_t* cls = reinterpret_cast<uint8_t*>(count + (size_t)heads * n_qt);
+  uint8_t* row_live = cls + tiles;
+  cudaError_t e = cudaMemsetAsync(row_live, 0, (size_t)heads * Sq, stream);
+  if (e != cudaSuccess) return e;
+  mask_classify_kernel<<<dim3(n_kt, n_qt, heads), 256, 0, stream>>>(
+      static_cast<const uint8_t*>(mask), Sq, Skv, n_qt, n_kt, cls, bits, row_live);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  mask_list_kernel<<<dim3(n_qt, heads), 32, 0, stream>>>(cls, row_live, Sq, n_qt, n_kt, list,
+                                                         count);
+  *mt = MaskTiles{list, count, bits, heads, n_qt, n_kt};
+  return cudaGetLastError();
+}
+
+template <int HD, bool MASKED>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* out,
                    int n_q_heads, int group, int Sq, int Skv, int q_offset, int causal,
                    int window, int mask_heads, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_floats(HD) * (int)sizeof(float);
   static bool configured = false;   // the attribute is per function, set once
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(chunk_attention_kernel<T, HD, MASKED>,
+    const cudaError_t e = cudaFuncSetAttribute(chunk_attention_kernel<HD, MASKED>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                bytes);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, n_q_heads);
-  chunk_attention_kernel<T, HD, MASKED><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(out), group, Sq, Skv, q_offset,
+  chunk_attention_kernel<HD, MASKED><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<float*>(out), group, Sq, Skv, q_offset,
       causal, window, mask_heads, scale);
   return cudaGetLastError();
 }
 
-template <typename T, bool MASKED>
+template <bool MASKED>
 cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, const void* mask,
                       void* out, int n_q_heads, int group, int Sq, int Skv, int q_offset,
                       int causal, int window, int mask_heads, float scale,
                       cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch<T, 32, MASKED>(q, k, v, mask, out, n_q_heads, group, Sq, Skv, q_offset,
-                                   causal, window, mask_heads, scale, stream);
+      return launch<32, MASKED>(q, k, v, mask, out, n_q_heads, group, Sq, Skv, q_offset,
+                                causal, window, mask_heads, scale, stream);
     case 64:
-      return launch<T, 64, MASKED>(q, k, v, mask, out, n_q_heads, group, Sq, Skv, q_offset,
-                                   causal, window, mask_heads, scale, stream);
+      return launch<64, MASKED>(q, k, v, mask, out, n_q_heads, group, Sq, Skv, q_offset,
+                                causal, window, mask_heads, scale, stream);
     case 128:
-      return launch<T, 128, MASKED>(q, k, v, mask, out, n_q_heads, group, Sq, Skv, q_offset,
-                                    causal, window, mask_heads, scale, stream);
+      return launch<128, MASKED>(q, k, v, mask, out, n_q_heads, group, Sq, Skv, q_offset,
+                                 causal, window, mask_heads, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -739,36 +901,39 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, const
 template <bool MASKED>
 int dispatch(int dtype, int hd, const void* q, const void* k, const void* v, const void* mask,
              void* out, int n_q_heads, int group, int Sq, int Skv, int q_offset, int causal,
-             int window, int mask_heads, float scale, void* stream) {
+             int window, int mask_heads, float scale, void* workspace, size_t workspace_bytes,
+             void* stream) {
   if (group <= 0 || n_q_heads % group != 0 || Sq <= 0 || Skv <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return (int)launch_hd<float, MASKED>(hd, q, k, v, mask, out, n_q_heads, group, Sq, Skv,
-                                         q_offset, causal, window, mask_heads, scale, st);
+    return (int)launch_hd<MASKED>(hd, q, k, v, mask, out, n_q_heads, group, Sq, Skv,
+                                  q_offset, causal, window, mask_heads, scale, st);
   }
-  if (dtype == 1 && !MASKED) {   // bf16 computed: the tensor-core kernel
-    switch (hd) {
-      case 32:
-        return (int)launch_wgmma<32>(q, k, v, out, n_q_heads, group, Sq, Skv, q_offset, causal,
-                                     window, scale, st);
-      case 64:
-        return (int)launch_wgmma<64>(q, k, v, out, n_q_heads, group, Sq, Skv, q_offset, causal,
-                                     window, scale, st);
-      case 128:
-        return (int)launch_wgmma<128>(q, k, v, out, n_q_heads, group, Sq, Skv, q_offset,
-                                      causal, window, scale, st);
-      default:
-        return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  // bf16: the tensor-core kernel; a mask is classified by tiles first
+  MaskTiles mt{};
+  if (MASKED) {
+    if (workspace == nullptr || workspace_bytes < mask_workspace_bytes(mask_heads, Sq, Skv)) {
+      return (int)cudaErrorInvalidValue;
     }
+    const cudaError_t e = prepare_mask(mask, mask_heads, Sq, Skv, workspace, &mt, st);
+    if (e != cudaSuccess) return (int)e;
   }
-  if (dtype == 1) {
-    return (int)launch_hd<__nv_bfloat16, MASKED>(hd, q, k, v, mask, out, n_q_heads, group,
-                                                 Sq, Skv, q_offset, causal, window,
-                                                 mask_heads, scale, st);
+  switch (hd) {
+    case 32:
+      return (int)launch_wgmma<32, MASKED>(q, k, v, out, n_q_heads, group, Sq, Skv, q_offset,
+                                           causal, window, scale, mt, st);
+    case 64:
+      return (int)launch_wgmma<64, MASKED>(q, k, v, out, n_q_heads, group, Sq, Skv, q_offset,
+                                           causal, window, scale, mt, st);
+    case 128:
+      return (int)launch_wgmma<128, MASKED>(q, k, v, out, n_q_heads, group, Sq, Skv, q_offset,
+                                            causal, window, scale, mt, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -781,16 +946,19 @@ extern "C" int computed_attention_fwd(const void* q, const void* k, const void* 
                                       int q_offset, int causal, int window, float scale,
                                       int dtype, void* stream) {
   return dispatch<false>(dtype, hd, q, k, v, nullptr, out, n_q_heads, group, Sq, Skv,
-                         q_offset, causal, window, 1, scale, stream);
+                         q_offset, causal, window, 1, scale, nullptr, 0, stream);
 }
 
 // As above with an explicit bool mask (mask_heads, Sq, Skv), mask_heads in
-// {1, n_q_heads}; nonzero = attend.
+// {1, n_q_heads}; nonzero = attend.  bf16 needs a workspace of
+// mask_workspace_bytes(mask_heads, Sq, Skv) bytes, 8-byte aligned; f32
+// takes none (null, 0).
 extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* mask, void* out, int n_q_heads, int group,
                                     int Sq, int Skv, int hd, int mask_heads, float scale,
-                                    int dtype, void* stream) {
+                                    int dtype, void* workspace, size_t workspace_bytes,
+                                    void* stream) {
   if (mask_heads != 1 && mask_heads != n_q_heads) return (int)cudaErrorInvalidValue;
   return dispatch<true>(dtype, hd, q, k, v, mask, out, n_q_heads, group, Sq, Skv, 0, 0, 0,
-                        mask_heads, scale, stream);
+                        mask_heads, scale, workspace, workspace_bytes, stream);
 }
