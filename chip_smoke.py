@@ -6,10 +6,11 @@
 Builds every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
 with ``nvcc`` (one compiler per source, in parallel), prints each kernel's
 registers, shared memory and spills (``-Xptxas -v``) and, from
-``cuobjdump -sass``, the tensor-core instructions of the attention and FFN
-libraries (``[route]`` lines; the bf16 attention kernel, computed and
-masked, and the bf16 FFN kernel must have HGMMA, their f32 kernels and the
-mask's tile pre-pass none), and drives the port's paths, two at
+``cuobjdump -sass``, the tensor-core instructions of every library
+(``[route]`` lines; the bf16 attention kernel, computed and masked, and
+the bf16 FFN kernel must have HGMMA, the bf16 SSD kernel HMMA or HGMMA,
+their f32 kernels, the mask's tile pre-pass and the RG-LRU kernels none),
+and drives the port's paths, two at
 gpt-paper's full width, one at minitron-4b's, one at phi3-mini-3.8b's, one
 at mamba2-1.3b's and one at recurrentgemma-9b's:
 
@@ -17,7 +18,8 @@ at mamba2-1.3b's and one at recurrentgemma-9b's:
   the serving shapes and at edge cases (split decode batches with a row of
   q_len 0 and splits past kv_len, GQA hd 256), the served tokens' digest
   beside those served with the plain version swapped in, the served logits
-  against the dense forward;
+  against the dense forward, and phi3-mini-3.8b's hd 96, which the paged
+  kernel has no instance for, refused when the engine is built;
 * the AutoChunk compiler: the 12-layer bf16 forward of 8192 tokens compiled
   at a 0.2 activation budget, once with the computed-mask attention kernel
   and once with ``mask_mode="bool"`` (the bool-mask kernel); predicted and
@@ -55,9 +57,11 @@ at mamba2-1.3b's and one at recurrentgemma-9b's:
   tokens, its 26 RG-LRU layers on ``rglru_scan``, and its float32 logits
   at 3 layers (two RG-LRU, one local attention) against the plain version.
   Both scans are first held against their plain versions (mamba2's shape,
-  a length the chunk does not divide, the reduced config's chunk 16, and
-  mamba2's shape again with dt and A drawn as Mamba-2 initialises them;
-  recurrentgemma's shape and an odd length; f32 and bf16 inputs).
+  a length the chunk does not divide, the reduced config's chunk 16, a
+  shape off every tile edge (p 48, n 64, chunk 100), and with dt and A
+  drawn as Mamba-2 initialises them mamba2's shape, 1000 rows and batch
+  2; recurrentgemma's shape, an odd length, batch 2 and a width that is
+  no multiple of the kernel's 32-channel tile; f32 and bf16 inputs).
 
 Each path runs with the kernels' launch counts zeroed just before and read
 just after.  Every kernel is timed beside its bound, its plain version and
@@ -245,8 +249,10 @@ def tensor_core_counts(lib):
 def route_report(build, name, wanted):
     """Print the tensor-core instruction count of every kernel in library
     ``name``.  A kernel whose name holds a key of ``wanted`` must have HGMMA
-    (wgmma) instructions where ``wanted`` says True, and no tensor-core
-    instruction at all where it says False.  Returns {kernel: count}."""
+    (wgmma) instructions where ``wanted`` says True, tensor-core
+    instructions of either kind (HGMMA or the warp-level HMMA) where it
+    says "tensor cores", and none at all where it says False.  Returns
+    {kernel: count}."""
     counts = tensor_core_counts(build.library_path(name))
     total = {}
     for fn, c in sorted(counts.items()):
@@ -256,8 +262,10 @@ def route_report(build, name, wanted):
               f" {dict(c) or ''}")
         for key, need in wanted.items():
             if key in fn:
-                check(hgmma > 0 if need else total[fn] == 0,
-                      f"{fn}: {hgmma} HGMMA of {total[fn]} tensor-core instructions")
+                ok = (total[fn] > 0 if need == "tensor cores" else hgmma > 0 if need
+                      else total[fn] == 0)
+                check(ok, f"{fn}: {hgmma} HGMMA of {total[fn]} tensor-core instructions,"
+                          f" want {need}")
     return total
 
 
@@ -1067,8 +1075,10 @@ HYBRID_RUN = dict(arch="recurrentgemma-9b", seq_len=8192,
                   # two RG-LRU layers and one local attention
                   check_layers=3)
 UNIT_ROUNDOFF = 2.0 ** -24       # float32
-SSM_KERNELS = {"ssd_scan": ("ssd_scan_kernel",), "cuBLAS products": ("gemm", "nvjet")}
-HYBRID_KERNELS = {"rglru_scan": ("rglru_scan_kernel",), "cuBLAS products": ("gemm", "nvjet")}
+# every kernel of each scan (ssd_scan_mma_kernel, ssd_scan_kernel<float>;
+# rglru_scan_kernel<T>, rglru_scan_simple_kernel<T>)
+SSM_KERNELS = {"ssd_scan": ("ssd_scan_",), "cuBLAS products": ("gemm", "nvjet")}
+HYBRID_KERNELS = {"rglru_scan": ("rglru_scan_",), "cuBLAS products": ("gemm", "nvjet")}
 
 
 def scan_tol(dt_name, terms, want):
@@ -1468,14 +1478,19 @@ def main() -> int:
         print(f"[build] {name}.cu with nvcc in {seconds:.2f}s")
         ptxas_report(name, log)
     # which route each redesigned kernel took: tensor-core instructions in
-    # its SASS (the bf16 attention and FFN kernels must have HGMMA, the f32
-    # ones and the mask's tile pre-pass none)
+    # its SASS (the bf16 attention and FFN kernels must have HGMMA, the bf16
+    # SSD kernel HMMA or HGMMA, the f32 ones, the mask's tile pre-pass and
+    # the RG-LRU kernels none)
     routes = {"chunked_attention": route_report(build, "chunked_attention", {
                   "chunk_attention_wgmma_kernel": True,     # bf16, computed and masked
                   "chunk_attention_kernel<": False, "mask_": False}),
               "paged_attention": route_report(build, "paged_attention", {}),
               "chunked_ffn": route_report(build, "chunked_ffn", {
-                  "ffn_wgmma_kernel": True, "ffn_simt_kernel": False, "cast_bf16": False})}
+                  "ffn_wgmma_kernel": True, "ffn_simt_kernel": False, "cast_bf16": False}),
+              # the bf16 scan on mma.sync (HMMA), the f32 one on CUDA cores
+              "ssd_scan": route_report(build, "ssd_scan", {
+                  "ssd_scan_mma_kernel": "tensor cores", "ssd_scan_kernel<": False}),
+              "rglru_scan": route_report(build, "rglru_scan", {"rglru_scan": False})}
 
     # ---- 3. kernel against its plain version at the serving shapes -------
     cfg = get_config("gpt-paper")                         # bf16, full width
@@ -1592,6 +1607,20 @@ def main() -> int:
           f" {token_digest(plain_reqs)}; {same} of {toks} tokens equal to the kernel's")
     del engine, params
 
+    # ---- 4d. a head dim the paged kernel has no instance for ------------
+    # phi3-mini-3.8b's hd 96 (ROADMAP B2): the engine refuses at construction
+    # on the card, before it allocates anything, not at its first step
+    pcfg = get_config("phi3-mini-3.8b")
+    check(PA.cuda_refusal(pcfg.hd) is not None and PA.cuda_refusal(cfg.hd) is None,
+          "cuda_refusal does not tell hd 96 from gpt-paper's hd 64")
+    try:
+        PagedServeEngine(pcfg, None, max_seqs=2, max_len=1024, page_size=ps, device="cuda")
+    except NotImplementedError as e:
+        print(f"[serve] phi3-mini-3.8b (hd {pcfg.hd}) on the card: the engine refuses at"
+              f" construction: {e}")
+    else:
+        fail("PagedServeEngine was built for phi3-mini-3.8b's hd 96 on the card")
+
     # ---- 5. served logits against the dense forward, fp32 ----------------
     cfg32 = cfg.with_(dtype="float32")
     params32 = M.init_params(cfg32, torch.Generator(device="cuda").manual_seed(1),
@@ -1691,9 +1720,10 @@ def main() -> int:
 
     # ---- 14. the scan kernels against their plain versions ---------------
     # mamba2's full shape, a length the chunk does not divide, the reduced
-    # config's chunk 16, and the full shape with Mamba-2's own dt and A
-    # (where the carried state's weight exp(a_end) is visible in f32);
-    # recurrentgemma's shape and an odd length
+    # config's chunk 16, a shape off every tile edge, and with Mamba-2's own
+    # dt and A (where the carried state's weight exp(a_end) is visible in
+    # f32) the full shape, 1000 rows and batch 2; recurrentgemma's shape, an
+    # odd length, batch 2 and a ragged channel tile
     from repro_torch.kernels import rglru_scan as RS
     from repro_torch.kernels import ssd_scan as SS
 
@@ -1705,9 +1735,19 @@ def main() -> int:
         (1, SSM_RUN["seq_len"], *full, scfg.ssm_chunk, "wide"),
         (1, 1000, *full, scfg.ssm_chunk, "wide"),
         (2, 100, red.ssm_heads, red.ssm_head_dim, red.ssm_state, red.ssm_chunk, "wide"),
-        (1, SSM_RUN["seq_len"], *full, scfg.ssm_chunk, "mamba2")], card)
+        (1, SSM_RUN["seq_len"], *full, scfg.ssm_chunk, "mamba2"),
+        (1, 1000, *full, scfg.ssm_chunk, "mamba2"),
+        (2, SSM_RUN["seq_len"], *full, scfg.ssm_chunk, "mamba2"),
+        # off every tile edge: a second p block of 16, n in one 64-column
+        # box, a chunk of 100 and a ragged last chunk
+        (1, 333, 4, 48, 64, 100, "wide")], card)
+    # B 2, and a D that is no multiple of the kernel's 32-channel tile (f32:
+    # TMA with a ragged last tile; bf16: rows of 8200 bytes, which TMA cannot
+    # take, so the one-thread-a-channel kernel)
     rglru_err = check_rglru_kernel(torch, RS, [(1, HYBRID_RUN["seq_len"], hcfg.d_model),
-                                               (1, 1001, hcfg.d_model)], card)
+                                               (1, 1001, hcfg.d_model),
+                                               (2, 1001, hcfg.d_model),
+                                               (1, 1001, hcfg.d_model + 4)], card)
 
     # ---- 15. mamba2-1.3b at full width: unchunked and per block ----------
     # counts zeroed just before each forward and read just after; then the
@@ -1811,6 +1851,7 @@ def main() -> int:
             "max_err_fp32": errs[kname]["float32"],
             "shape": dict(t["shape"], bytes=t["bytes"], operations=t["operations"]),
             "forward": run,
+            "tensor_core_instructions": routes[kname],
         })
     entries[-2]["max_err_state_fp32"] = ssd_err["state"]
     print(card)

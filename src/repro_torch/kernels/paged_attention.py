@@ -116,9 +116,20 @@ def _kernel():
     return fn
 
 
+def cuda_refusal(hd: int) -> Optional[str]:
+    """Why the CUDA kernel refuses head dim ``hd``, or None if it takes it.
+    The wrapper raises with this message on a CUDA tensor, and the paged
+    engine asks it when it is built for the card; the plain version on the
+    CPU takes every head dim, as the JAX kernel does."""
+    if hd not in _HEAD_DIMS:
+        return f"the CUDA paged-attention kernel takes hd in {_HEAD_DIMS}, got {hd}"
+    return None
+
+
 def _check_args(q, kv_pages, page_table, q_lens, kv_lens):
-    """What the kernel takes; checked on every device, so the CPU tests
-    reach it too."""
+    """What the function takes (any head dim); checked on every device, so
+    the CPU tests reach it too.  What only the CUDA kernel refuses is
+    :func:`cuda_refusal`'s."""
     S, q_max, H, hd = q.shape
     P, page_size, two_kv, hd_kv = kv_pages.shape
     for name, t in (("kv_pages", kv_pages), ("page_table", page_table),
@@ -128,7 +139,7 @@ def _check_args(q, kv_pages, page_table, q_lens, kv_lens):
     if q.dtype not in _DTYPE_CODES or kv_pages.dtype != q.dtype:
         raise TypeError(f"q/kv_pages must share a dtype in {list(_DTYPE_CODES)},"
                         f" got {q.dtype}/{kv_pages.dtype}")
-    if hd not in _HEAD_DIMS or hd_kv != hd or two_kv % 2 or H % max(two_kv // 2, 1):
+    if hd_kv != hd or two_kv % 2 or H % max(two_kv // 2, 1):
         raise ValueError(f"unsupported shapes q={tuple(q.shape)}"
                          f" kv_pages={tuple(kv_pages.shape)}")
     if page_table.dim() != 2 or page_table.shape[0] != S or q_lens.shape != (S,) \
@@ -161,6 +172,9 @@ def paged_attention_blocked(q, kv_pages, page_table, q_lens, kv_lens, *,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_blocked: no kernel for device {q.device}")
     S, q_max, H, hd = q.shape
+    why = cuda_refusal(hd)
+    if why is not None:
+        raise ValueError(why)
     P, page_size, two_kv, _ = kv_pages.shape
     page_table = page_table.to(torch.int32).contiguous()
     q_lens = q_lens.to(torch.int32).contiguous()

@@ -12,7 +12,10 @@ The op is registered as ``torch.ops.repro_torch.rglru_scan`` (a
 for CUDA tensors, and a fake implementation), so a fake-mode trace keeps it
 as one node.  On a CUDA tensor the op launches the hand-written kernel in
 ``csrc/rglru_scan.cu`` (or raises); on a CPU tensor it runs
-:func:`rglru_scan_plain`.  ``rglru_scan.launches`` counts kernel launches.
+:func:`rglru_scan_plain`.  ``rglru_scan.launches`` counts the op's launches
+on the card (one kernel a call).  The kernel streams a and b through a
+shared-memory ring per 32-channel tile and keeps each channel's recurrence
+sequential (``csrc/rglru_scan.cu``).
 """
 from __future__ import annotations
 

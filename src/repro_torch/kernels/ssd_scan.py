@@ -20,7 +20,9 @@ fake-mode trace keeps it as one node and the compiled block launches the
 kernel.  On a CUDA tensor the op launches the hand-written kernel in
 ``csrc/ssd_scan.cu`` (or raises); on a CPU tensor it runs
 :func:`ssd_scan_plain`, a port of the JAX package's ``ssd_chunked``.
-``ssd_scan.launches`` counts kernel launches.
+``ssd_scan.launches`` counts the op's launches on the card (one a call).
+bf16 inputs run the tensor-core kernel ``ssd_scan_mma_kernel``, f32 inputs
+the CUDA-core ``ssd_scan_kernel`` (routing in ``ssd_scan_fwd``).
 """
 from __future__ import annotations
 
@@ -87,10 +89,14 @@ def ssd_scan_plain(x, dt, A, B, C, chunk: int):
 
 
 def flops(x_shape, n: int, chunk: int) -> float:
-    """Operations the kernel does in one call: per (b, h, chunk) ``C Bᵀ``
-    (2Q²N), the scores times x (2Q²P), the inter-chunk term (2QNP) and the
-    state update (2PQN), at the padded length.  ``C Bᵀ`` is the same for
-    every head; the kernel recomputes it per head, and this counts that."""
+    """Operations of one call, the compiler's cost model: per (b, h, chunk)
+    ``C Bᵀ`` (2Q²N), the scores times x (2Q²P), the inter-chunk term
+    (2QNP) and the state update (2PQN), at the padded length.  ``C Bᵀ`` is
+    the same for every head and counted per head.  The bf16 kernel splits
+    a head's P over blocks of 32 columns, each of which computes ``C Bᵀ``
+    and the scores times x on the 16 x 16 blocks on and below the diagonal
+    (36 of 64), and the two products that take an f32 operand twice (bf16
+    hi + lo); the count stays the function's, not the kernel's."""
     b, s, h, p = x_shape
     q = chunk
     nc = -(-s // q)
@@ -160,6 +166,15 @@ def _ssd_scan_cuda(x, dt, A, B, C, chunk):
                              f" strides {t.stride()}")
     if not A.is_contiguous():
         raise ValueError("A must be contiguous")
+    if x.dtype == torch.bfloat16:
+        # the tensor-core kernel copies whole 8-column (16-byte) pieces
+        if p % 8 or n % 8:
+            raise ValueError(f"the bf16 kernel takes p and n in multiples of 8, got p {p},"
+                             f" n {n}")
+        for name, t in (("x", x), ("B", B), ("C", C)):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
+                raise ValueError(f"the bf16 kernel reads {name} in 16-byte pieces: its address"
+                                 f" and strides {t.stride()} must be 16-byte aligned")
     y, state = _outputs(x, n)
     if y.numel() == 0:
         return y, state.zero_()

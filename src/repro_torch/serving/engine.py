@@ -31,7 +31,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core import stats
 from ..device import resolve_device
-from ..kernels.paged_attention import paged_attention_blocked
+from ..kernels.paged_attention import cuda_refusal, paged_attention_blocked
 from ..models import layers as L
 from ..models.model import Model
 
@@ -120,6 +120,10 @@ class PagedServeEngine:
             raise ValueError("paged serving keeps the full context; sliding-window"
                              " archs need the slot engine (ROADMAP queue A item 8)")
         self.device = resolve_device(device)
+        why = cuda_refusal(cfg.hd) if self.device.type == "cuda" else None
+        if why is not None:
+            raise NotImplementedError(f"{why}: this head dim's paged kernel instance is"
+                                      " ROADMAP queue B2 (the CPU serves it)")
         self.cfg = cfg
         self.params = params.to(self.device)
         self.max_seqs = max_seqs

@@ -57,6 +57,10 @@ CASES = {
     "mixed_with_padding_rows": ([8, 1, 0, 5, 1], [24, 13, 0, 5, 1], 4, 4, 64, 4),
     "gqa_mixed": ([6, 1, 3, 0], [20, 7, 3, 0], 4, 2, 32, 8),
     "gqa_hd64_page16": ([1, 12, 1], [40, 12, 33], 4, 2, 64, 16),
+    # head dims the CUDA kernel has no instance for (cuda_refusal): the
+    # function takes them, as the JAX kernel does (phi3-mini's hd 96)
+    "gqa_hd96_mixed": ([5, 1, 1], [21, 9, 30], 4, 2, 96, 8),
+    "hd16_mixed": ([4, 1, 0], [11, 6, 0], 2, 2, 16, 4),
 }
 
 
@@ -256,8 +260,7 @@ def test_wrapper_takes_the_plain_version_only_on_cpu():
 BAD_ARGS = {
     "float64": lambda q, p, t, ql, kl: (q.double(), p.double(), t, ql, kl),
     "mixed_dtypes": lambda q, p, t, ql, kl: (q.bfloat16(), p, t, ql, kl),
-    "head_dim_16": lambda q, p, t, ql, kl: (q[..., :16].contiguous(),
-                                            p[..., :16].contiguous(), t, ql, kl),
+    "kv_head_dim_differs": lambda q, p, t, ql, kl: (q, p[..., :16].contiguous(), t, ql, kl),
     "heads_not_multiple_of_kv": lambda q, p, t, ql, kl: (q[:, :, :3].contiguous(), p, t,
                                                          ql, kl),
     "table_rows": lambda q, p, t, ql, kl: (q, p, t[:1], ql, kl),
@@ -272,3 +275,23 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(what):
     args = [torch.tensor(a) for a in _case([2, 1], [5, 3], H=4, Kv=2, hd=32, ps=4)]
     with pytest.raises((TypeError, ValueError)):
         PA.paged_attention_blocked(*BAD_ARGS[what](*args))
+
+
+@pytest.mark.parametrize("check", ["cpu_serves_hd16_like_pallas", "cuda_refusal_names_head_dims"])
+def test_head_dim_gate_is_the_cuda_kernels_alone(check):
+    """A head dim without a CUDA instance is refused on the card only: the
+    CPU serves hd 16 equal to the Pallas kernel, and ``cuda_refusal`` names
+    the kernel's head dims for 16 and 96 and passes 64."""
+    if check == "cpu_serves_hd16_like_pallas":
+        q_lens, kv_lens = [2, 1], [5, 3]
+        q, pages, table, ql, kl = _case(q_lens, kv_lens, H=4, Kv=2, hd=16, ps=4)
+        ours = _port(q, pages, table, ql, kl).numpy()
+        theirs = jax_paged(jnp.asarray(q), jnp.asarray(pages), jnp.asarray(table),
+                           jnp.asarray(ql), jnp.asarray(kl), interpret=True)
+        np.testing.assert_allclose(_real_rows(ours, q_lens), _real_rows(theirs, q_lens),
+                                   atol=ATOL, rtol=0)
+    else:
+        for hd in (16, 96):
+            why = PA.cuda_refusal(hd)
+            assert why is not None and str(PA._HEAD_DIMS) in why and str(hd) in why
+        assert PA.cuda_refusal(64) is None

@@ -72,6 +72,38 @@ def test_greedy_tokens_match_jax_isolated_and_staggered(models):
     assert m["requests"] == 6 and m["tokens"] == 30
 
 
+def test_phi3_head_dim_96_greedy_tokens_match_jax():
+    """A reduced phi3-mini at head dim 96 (d_model 192, 2 heads), which the
+    CUDA paged kernel has no instance for: the CPU engine serves it and
+    its greedy tokens equal the JAX engine's.  Its window is max_len, as
+    the full config's 8192 covers a served context (the reduced 32 would
+    not be a paged config)."""
+    shape = dict(d_model=192, n_heads=2, n_kv_heads=2, dtype="float32",
+                 sliding_window=ENGINE["max_len"])
+    cfg = get_config("phi3-mini-3.8b").reduced().with_(**shape)
+    jcfg = jax_config("phi3-mini-3.8b").reduced().with_(**shape)
+    assert cfg.hd == jcfg.hd == 96
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(1))
+    params = params_from_numpy(cfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    ours = PagedServeEngine(cfg, params, device="cpu", **ENGINE)
+    theirs = JaxEngine(jcfg, jparams, obs=False, **ENGINE)
+    got = _serve(ours, Request, PROMPTS, together=True)
+    assert got == _serve(theirs, JaxRequest, PROMPTS, together=True)
+
+
+def test_engine_for_the_card_refuses_a_head_dim_at_construction(monkeypatch):
+    """Built for the card, the engine asks the paged kernel's
+    ``cuda_refusal`` and raises before it allocates anything, naming the
+    ROADMAP item, instead of failing at its first step."""
+    from repro_torch.serving import engine as E
+
+    monkeypatch.setattr(E, "resolve_device", lambda device: torch.device("cuda"))
+    cfg = get_config("phi3-mini-3.8b").reduced().with_(
+        d_model=192, n_heads=2, n_kv_heads=2, sliding_window=ENGINE["max_len"])
+    with pytest.raises(NotImplementedError, match="hd in .* got 96.*queue B2"):
+        PagedServeEngine(cfg, None, **ENGINE)
+
+
 def test_admission_is_bounded_by_pages(models):
     cfg, params, jcfg, jparams = models
     # 4 pages of 8 tokens: each request needs 3-4 pages, so one runs at a time
