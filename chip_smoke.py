@@ -30,6 +30,16 @@ at mamba2-1.3b's and one at recurrentgemma-9b's:
   hd 32, and a window whose first rows see no live key); the masked one
   also with a random per-head mask holding a row with no live key, and at
   the GQA cases with per-head masks holding dead tiles and such a row;
+* the plan cache: the precompile CLI, run as a subprocess, writes the plan
+  of that gpt-paper compile (traced on ``meta``) into a fresh directory; a
+  fresh ``autochunk(..., cache=dir)`` of the same forward replays it from
+  disk (1 hit, 0 misses, 0 search passes, the cold compile's stages, the
+  same ``computed_attention`` launches, logits bit-equal to the cold
+  compile's; cold and warm host seconds side by side); then a
+  ``canonical_bucket_exec`` function compiled at S 8192 serves S 6000 and
+  7000 by padding (2 bucket-executable hits, 0 traces, 0 searches, the
+  S 6000 peak within 1.05x of the S 8192 one), and its padded float32
+  logits at S 6000 are held within 1e-3 of the unchunked forward's;
 * per-block AutoChunk inside the model forward: minitron-4b's 32-layer bf16
   forward of 8192 tokens with ``autochunk_budget=0.04``, one dense block
   compiled at the first layer and replayed for the other 31, its attention
@@ -518,9 +528,11 @@ def measure_forward(torch, fn, args):
     return out, peak, a.elapsed_time(b)
 
 
-def run_compiled_forward(torch, CA, stats, M, cfg, card, *, mask_mode):
+def run_compiled_forward(torch, CA, stats, M, cfg, card, *, mask_mode, keep=None):
     """The port's compiler path at full width: compile, drive it with the
-    kernel counts zeroed just before and read just after, check it."""
+    kernel counts zeroed just before and read just after, check it.  With
+    ``keep`` (a dict), the cold compile, its model, batch and host seconds
+    stay there for the ``[cache]`` phase."""
     import numpy as np
 
     kname = "computed_attention" if mask_mode == "auto" else "masked_attention"
@@ -575,6 +587,9 @@ def run_compiled_forward(torch, CA, stats, M, cfg, card, *, mask_mode):
           f" {launches} = {cfg.n_layers} layers x {expected // cfg.n_layers} chunks; {card}")
     out = dict(launches=launches, chunk=chunks[0], peak0=peak0, peak1=peak1, ms0=ms0, ms1=ms1,
                pred0=r.baseline_peak, pred1=r.final_peak, device_ms=trace)
+    if keep is not None:
+        keep.update(compiled=compiled, planned=planned, model=model, batch=batch,
+                    seconds=(t_trace, t_search, t_compile), launches=launches, peak1=peak1)
     del y1, compiled, planned, model
     return out
 
@@ -604,6 +619,170 @@ def check_forward_fp32(torch, M, cfg, *, mask_mode):
           f" max_abs_err {err:.3e} (limit 1e-3)")
     check(err <= 1e-3, f"fp32 chunked logits differ by {err}")
     return err
+
+
+# ---------------------------------------------------------------------------
+# The plan cache: precompiled gpt-paper replayed from disk, and a canonical
+# bucket executable serving shorter lengths of its bucket
+# ---------------------------------------------------------------------------
+
+CACHE = dict(bucket_lens=(6000, 7000), precompile_timeout=900)
+
+
+def stage_shapes(stages):
+    """Regions, chunk counts and chunk extents of a plan's stages."""
+    return [((st.s, st.e), st.n_chunks, st.chunk_extent) for st in stages]
+
+
+def precompile_plans(cache_dir):
+    """``python -m repro_torch.tools.precompile`` for the ``[compile]`` cell,
+    as a subprocess; returns (plans on disk, host seconds)."""
+    import os
+
+    cmd = [sys.executable, "-m", "repro_torch.tools.precompile", "--configs", "gpt-paper",
+           "--full", "--seq-lens", str(COMPILE["seq_len"]), "--budgets", str(COMPILE["budget"]),
+           "--max-stages", str(COMPILE["max_stages"]), "--cache-dir", str(cache_dir)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=CACHE["precompile_timeout"])
+    seconds = time.perf_counter() - t0
+    for line in (proc.stdout + proc.stderr).splitlines():
+        print(f"[cache] precompile: {line}")
+    check(proc.returncode == 0, f"precompile exited {proc.returncode}")
+    return len(list(Path(cache_dir).glob("*.json"))), seconds
+
+
+def run_cache_phase(torch, CA, stats, M, cfg, cold, card):
+    """Warm replay of the precompiled full-width plan from disk against the
+    ``[compile]`` phase's cold compile (kept in ``cold``), then the canonical
+    bucket executable at S 8192, 6000 and 7000.  Kernel counts zeroed just
+    before each drive and read just after."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core import ChunkConfig, autochunk
+
+    S = COMPILE["seq_len"]
+    knobs = dict(budget_ratio=COMPILE["budget"], max_stages=COMPILE["max_stages"])
+    model, batch = cold["model"], cold["batch"]
+    params = dict(model.named_parameters())
+    with tempfile.TemporaryDirectory(prefix="plans-") as cache_dir:
+        n_plans, pre_s = precompile_plans(cache_dir)
+        check(n_plans == 1, f"{n_plans} plans precompiled, want 1")
+        print(f"[cache] precompile gpt-paper S={S} budget {COMPILE['budget']} on meta:"
+              f" {n_plans} plan in {pre_s:.2f} host seconds (a subprocess, its start-up"
+              " included)")
+
+        # ---- warm replay from disk --------------------------------------
+        cf = autochunk(M.logits_fn(model), ChunkConfig(**knobs), cache=cache_dir)
+        before = stats.snapshot()
+        t0 = time.perf_counter()
+        warm = cf.compile(params, batch)
+        warm_s = time.perf_counter() - t0
+        d = stats.delta(before)
+        cold_s = sum(cold["seconds"])
+        cold_stages = stage_shapes(cold["planned"].plan.stages)
+        warm_stages = stage_shapes(warm.result.plan_stages)
+        print(f"[cache] warm compile from disk: plan_cache_hits {d['plan_cache_hits']},"
+              f" misses {d['plan_cache_misses']}, search passes {d['search_passes']},"
+              f" traces {d['trace_calls']}; {len(warm_stages)} stages"
+              f" {'equal to' if warm_stages == cold_stages else 'NOT equal to'} the cold"
+              f" compile's; host seconds cold {cold_s:.2f} (trace {cold['seconds'][0]:.2f},"
+              f" search {cold['seconds'][1]:.2f}, compile {cold['seconds'][2]:.2f}), warm"
+              f" {warm_s:.2f}")
+        check(d["plan_cache_hits"] == 1 and d["plan_cache_misses"] == 0,
+              f"warm compile: {d['plan_cache_hits']} hits, {d['plan_cache_misses']} misses")
+        check(d["search_passes"] == 0, f"warm compile ran {d['search_passes']} search passes")
+        check(warm.from_cache, "warm compile not from the cache")
+        check(warm_stages == cold_stages, f"warm stages {warm_stages} != cold {cold_stages}")
+        with torch.no_grad():
+            y_cold = cold["compiled"](params, batch)
+            warm(params, batch)                                 # warm-up
+            CA.computed_attention.launches = CA.masked_attention.launches = 0
+            y_warm, peak_warm, ms_warm = measure_forward(torch, warm, (params, batch))
+            launches = CA.computed_attention.launches
+        same = torch.equal(y_warm, y_cold)
+        diff = float((y_warm.float() - y_cold.float()).abs().max())
+        print(f"[cache] warm forward: computed_attention launches {launches} (cold"
+              f" {cold['launches']}), activation peak {peak_warm} B (cold {cold['peak1']} B),"
+              f" {ms_warm:.2f} ms; logits {'bit-equal to' if same else 'DIFFER from'} the"
+              f" cold compile's (max abs diff {diff:.3e}); {card}")
+        check(launches == cold["launches"],
+              f"warm forward launched computed_attention {launches} times")
+        check(same, f"warm logits differ from the cold compile's by {diff}: same plan,"
+              " same kernels, so they must be bit-equal")
+        del y_cold, y_warm, warm, cf
+
+        # ---- canonical bucket executable --------------------------------
+        cfb = autochunk(M.logits_fn(model), ChunkConfig(canonical_bucket_exec=True, **knobs),
+                        cache=cache_dir)
+        tokens = batch["tokens"]
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            y = cfb(params, batch)             # the bucket's one compile, at S
+            torch.cuda.synchronize()
+            bucket_s = time.perf_counter() - t0
+            del y
+            CA.computed_attention.launches = 0
+            y, peak_full, ms_full = measure_forward(torch, cfb, (params, batch))
+            launches_full = CA.computed_attention.launches
+            del y
+            before = stats.snapshot()
+            rows = []
+            for n in CACHE["bucket_lens"]:
+                CA.computed_attention.launches = 0
+                y, peak, ms = measure_forward(torch, cfb, (params, {"tokens": tokens[:, :n]}))
+                check(tuple(y.shape) == (1, n, cfg.vocab_padded), f"S={n}: shape {y.shape}")
+                check(bool(torch.isfinite(y[..., :cfg.vocab_size]).all()), f"S={n}: non-finite")
+                rows.append((n, peak, ms, CA.computed_attention.launches))
+                del y
+            d = stats.delta(before)
+            # each length again, through its memoized pad / slice wrapper
+            again = [measure_forward(torch, cfb, (params, {"tokens": tokens[:, :n]}))[2]
+                     for n in CACHE["bucket_lens"]]
+        print(f"[cache] bucket executable (canonical_bucket_exec): compiled at S={S} from"
+              f" the cache in {bucket_s:.2f} host seconds (its first call included); at S={S}"
+              f" peak {peak_full} B, {ms_full:.2f} ms, computed_attention launches"
+              f" {launches_full}; then " + "; ".join(
+                  f"S={n} padded to {S}: peak {p} B ({p / peak_full:.3f}x), first call"
+                  f" {ms:.2f} ms (its meta shape pass included), again {t:.2f} ms, launches {k}"
+                  for (n, p, ms, k), t in zip(rows, again))
+              + f"; over the first calls bucket_exec_hits {d['bucket_exec_hits']}, traces"
+              f" {d['trace_calls']}, search passes {d['search_passes']}")
+        check(d["bucket_exec_hits"] == len(rows), f"bucket_exec_hits {d['bucket_exec_hits']}")
+        check(d["trace_calls"] == 0 and d["search_passes"] == 0,
+              f"warm bucket: {d['trace_calls']} traces, {d['search_passes']} searches")
+        check(rows[0][1] <= 1.05 * peak_full,
+              f"S={rows[0][0]} peak {rows[0][1]} B above 1.05x the S={S} peak {peak_full} B")
+        del cfb
+
+    # ---- the padded fp32 logits against the unchunked forward -----------
+    cfg32 = cfg.with_(dtype="float32")
+    model32 = M.init_params(cfg32, torch.Generator(device="cuda").manual_seed(4), device="cuda")
+    params32 = dict(model32.named_parameters())
+    n = CACHE["bucket_lens"][0]
+    tok = torch.tensor(np.random.default_rng(4).integers(0, cfg.vocab_size, (1, n)),
+                       device="cuda")
+    cf32 = autochunk(M.logits_fn(model32), ChunkConfig(canonical_bucket_exec=True, **knobs))
+    with torch.no_grad():
+        y1 = cf32(params32, {"tokens": tok})
+        y0 = M.logits_fn(model32)(params32, {"tokens": tok})
+    err = float((y1[..., :cfg.vocab_size] - y0[..., :cfg.vocab_size]).abs().max())
+    bucket = cf32.stats()
+    print(f"[cache] fp32 S={n} through the bucket executable compiled at S={S}"
+          f" ({bucket['bucket_exec_compiles']} compile, {bucket['padded_shapes']} padded"
+          f" shape): logits against the unchunked forward at S={n} max_abs_err {err:.3e}"
+          " (limit 1e-3)")
+    check(bucket["bucket_exec_compiles"] == 1 and bucket["padded_shapes"] == 1,
+          f"fp32 bucket executable: {bucket}")
+    check(err <= 1e-3, f"padded fp32 logits differ from the unchunked forward by {err}")
+    return dict(warm_launches=launches, precompile_s=pre_s, cold_compile_s=cold_s,
+                warm_compile_s=warm_s, warm_peak=peak_warm, warm_ms=ms_warm,
+                bucket_peak=peak_full, bucket_ms=ms_full,
+                bucket_rows=[dict(seq=n, peak=p, first_ms=ms, again_ms=t, launches=k)
+                             for (n, p, ms, k), t in zip(rows, again)],
+                padded_fp32_err=err)
 
 
 def time_attention_kernels(torch, F, CA, chunk, ext, flush, card, *, N=12, group=1, hd=64,
@@ -1679,10 +1858,17 @@ def main() -> int:
     cfg_c = cfg.with_(scan_layers=False)                  # 12 layers, bf16
     fwd = {}
     fp32_err = {}
+    cold = {}
     for mode in ("auto", "bool"):
-        fwd[mode] = run_compiled_forward(torch, CA, stats, M, cfg_c, card, mask_mode=mode)
+        fwd[mode] = run_compiled_forward(torch, CA, stats, M, cfg_c, card, mask_mode=mode,
+                                         keep=cold if mode == "auto" else None)
         fp32_err[mode] = check_forward_fp32(torch, M, cfg_c, mask_mode=mode)
         torch.cuda.empty_cache()
+
+    # ---- 8b. the plan cache: precompiled gpt-paper replayed from disk ----
+    cache_run = run_cache_phase(torch, CA, stats, M, cfg_c, cold, card)
+    del cold
+    torch.cuda.empty_cache()
 
     # ---- 9. the chunked-attention kernels against their plain versions --
     c_chunk, ext = fwd["auto"]["chunk"], COMPILE["seq_len"]
@@ -1816,6 +2002,7 @@ def main() -> int:
             "shape": {k: t[k] for k in ("sq", "skv", "q_offset", "bytes", "operations")},
             "forward": dict(fwd[mode], fp32_logits_err=fp32_err[mode]),
         })
+    entries[1]["cache"] = cache_run
     entries[1]["block_shape"] = block_attn_timed
     entries[1]["tensor_core_instructions"] = routes["chunked_attention"]
     entries[2]["tensor_core_instructions"] = routes["chunked_attention"]

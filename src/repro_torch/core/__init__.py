@@ -18,18 +18,27 @@ from .api import (
     autochunk,
     build_autochunk,
 )
-from .codegen import build_fn_from_plan, graph_to_fn
+from .codegen import build_chunked_fn, build_fn_from_plan, graph_to_fn
 from .estimation import MemoryProfile, estimate_memory
 from .graph import Graph, trace
-from .lowering import apply_chunk, emit
-from .plan import ChunkPlan, PlanApplyError, PlanStage
+from .lowering import apply_chunk, emit, emit_padded_call
+from .plan import (
+    ChunkPlan,
+    PlanApplyError,
+    PlanCache,
+    PlanStage,
+    as_plan_cache,
+    graph_fingerprint,
+    plan_cache_key,
+)
 from .search import ChunkCandidate, search_chunks
 from .selection import CostHyper, rank_candidates
 
 __all__ = [
     "AutoChunkResult", "ChunkCandidate", "ChunkConfig", "ChunkPlan", "ChunkedFunction",
-    "CompiledFunction", "CostHyper", "Graph", "MemoryProfile", "PlanApplyError", "PlanStage",
-    "Planned", "ShapeBucketer", "StageRecord", "Traced", "apply_chunk", "autochunk",
-    "build_autochunk", "build_fn_from_plan", "emit", "estimate_memory", "graph_to_fn",
-    "rank_candidates", "search_chunks", "stats", "trace",
+    "CompiledFunction", "CostHyper", "Graph", "MemoryProfile", "PlanApplyError", "PlanCache",
+    "PlanStage", "Planned", "ShapeBucketer", "StageRecord", "Traced", "apply_chunk",
+    "as_plan_cache", "autochunk", "build_autochunk", "build_chunked_fn", "build_fn_from_plan",
+    "emit", "emit_padded_call", "estimate_memory", "graph_fingerprint", "graph_to_fn",
+    "plan_cache_key", "rank_candidates", "search_chunks", "stats", "trace",
 ]

@@ -1,5 +1,9 @@
-"""Plan replay over the lowering backend.
+"""Codegen front end over the lowering backend.
 
+* :func:`build_chunked_fn` is the one-shot per-stage closure: the chunk loop
+  of one candidate as a Python closure over the graph, not a graph rewrite.
+  Stacking stages nests closures.  Kept as an independent reference for
+  property tests; the compile pipeline does not call it.
 * :func:`build_fn_from_plan` replays a saved :class:`~repro_torch.core.plan.ChunkPlan`
   onto a freshly traced graph: its stages as successive rewrites
   (:func:`~repro_torch.core.lowering.apply_chunk`), kernel dispatch, one
@@ -7,19 +11,81 @@
   and no re-trace: the caller's trace of the function is the only one.
 * :func:`graph_to_fn` is the identity emit.
 
-The JAX package's one-shot ``build_chunked_fn`` (a per-stage closure
-codegen kept there for its property tests) is not ported: nothing of the
-port calls it.  A port of ``repro/core/codegen.py``.
+A port of ``repro/core/codegen.py``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
 
 from . import stats
 from .estimation import estimate_memory
-from .graph import Graph
-from .lowering import apply_chunk, emit, graph_callable
+from .graph import Graph, vshape
+from .lowering import (
+    LOOP_INDEX,
+    _adjust_op,
+    _narrow,
+    _runtime_device,
+    apply_chunk,
+    call_op,
+    emit,
+    graph_callable,
+)
 from .plan import PlanApplyError
+from .search import ChunkCandidate
+
+
+def build_chunked_fn(g: Graph, cand: ChunkCandidate,
+                     n_chunks: int) -> Callable[..., Tuple[Any, ...]]:
+    """A flat callable computing ``g`` with ``cand`` run as a chunk loop.
+
+    The prefix, the hoisted nodes and the suffix run whole; the region's
+    in-loop nodes run once a chunk on ``narrow`` slices of the sliced
+    inputs, with their shape arguments shrunk to the chunk, and each chunk
+    of a loop output is copied into its full buffer.  ``n_chunks`` need not
+    divide the extent: the last chunk is clamped to end at the extent and
+    rewrites the tail with the same values.
+    """
+    stats.bump("codegen_calls")
+    ext = cand.chunk_extent
+    c = -(-ext // int(n_chunks))          # ceil: per-chunk slice extent
+    n_iters = -(-ext // c)
+    prefix = list(g.nodes[:cand.s])
+    hoisted = [g.nodes[i] for i in cand.hoisted]
+    body = [_adjust_op(g.nodes[i], cand.var_dim, ext, c) for i in cand.in_loop]
+    suffix = list(g.nodes[cand.e + 1:])
+    sliced, full_in = list(cand.sliced_in), list(cand.full_in)
+    loop_out = [(v, cand.var_dim[v]) for v in cand.loop_out]
+    consts, invars, outvars = dict(g.consts), list(g.invars), list(g.outvars)
+
+    def run(nodes, env, device):
+        for node in nodes:
+            env[node] = call_op(node.target, node.args, node.kwargs, env, device)
+
+    def fn(*flat_args):
+        device = _runtime_device(flat_args)
+        env: Dict[Any, Any] = {v: t.to(device) for v, t in consts.items()}
+        env.update(zip(invars, flat_args))
+        run(prefix, env, device)
+        run(hoisted, env, device)
+        bufs = [torch.empty(vshape(v), dtype=v.meta["val"].dtype, device=device)
+                for v, _ in loop_out]
+        for i in range(n_iters):
+            start = min(i * c, ext - c)
+            benv: Dict[Any, Any] = {v: env[v] for v in full_in}
+            benv[LOOP_INDEX] = i
+            for v, d in sliced:
+                benv[v] = _narrow(env[v], d, start, c)
+            for op in body:
+                benv[op.node] = call_op(op.node.target, op.args, op.kwargs, benv, device)
+            for buf, (v, d) in zip(bufs, loop_out):
+                buf.narrow(d, start, c).copy_(benv[v])
+        env.update((v, b) for (v, _), b in zip(loop_out, bufs))
+        run(suffix, env, device)
+        return tuple(env[v] for v in outvars)
+
+    return fn
 
 
 def build_fn_from_plan(baseline_graph: Graph, plan, *, rescale: bool = False,

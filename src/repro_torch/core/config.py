@@ -69,11 +69,16 @@ class ChunkConfig:
                         mask as a bool array
     ``mesh_spec``       must be None (device meshes: ROADMAP item 11)
     ``canonical_bucket_exec``
-                        must be False (canonical bucket executables:
-                        ROADMAP item 6)
+                        compile one executable per shape bucket, at the
+                        bucket's boundary shape, and serve every other
+                        length in the bucket by right-padding the inputs to
+                        the boundary and slicing the outputs back.  The
+                        function must be length-masked: real outputs may not
+                        depend on padded content (a causal forward is).
+                        Part of the cache token
     ``cache_max_entries`` / ``cache_policy``
-                        plan-cache eviction knobs, validated and carried for
-                        the plan cache (ROADMAP item 6); never identity
+                        plan-cache eviction after each compile (``'lru'`` or
+                        ``'cost_lfu'``); operational, never identity
     ``verbose``         per-stage progress printing (not part of the key)
     """
 
@@ -140,9 +145,6 @@ class ChunkConfig:
                            _as_int_tuple("dim_blocklist", self.dim_blocklist))
         if self.mesh_spec is not None:
             raise NotImplementedError("mesh_spec: mesh-aware planning is ROADMAP queue A item 11")
-        if self.canonical_bucket_exec:
-            raise NotImplementedError(
-                "canonical_bucket_exec: canonical bucket executables are ROADMAP queue A item 6")
         if self.autotune == "on":
             raise NotImplementedError("autotune='on': the kernel autotuner is ROADMAP queue A"
                                       " item 7")
@@ -285,3 +287,14 @@ class ShapeBucketer:
 
     def bucket_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
         return tuple(self.bucket_dim(s) for s in shape)
+
+    # The canonical shape of a bucket is its upper boundary: the one shape a
+    # bucket executable is compiled at (``ChunkConfig.canonical_bucket_exec``).
+
+    def canonical_dim(self, size: int) -> int:
+        """Bucket upper boundary for one dim (the padded extent)."""
+        return self.bucket_dim(size)
+
+    def canonical_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """The shape a bucket executable is compiled at for ``shape``."""
+        return self.bucket_shape(shape)

@@ -7,6 +7,9 @@
   region's nodes with their shape arguments shrunk to the chunk size.
   Applying a multi-stage plan is K successive rewrites on one graph; nothing
   is traced.
+* :func:`emit_padded_call` wraps a callable compiled at a shape bucket's
+  boundary so that it serves any shape in the bucket: inputs right-padded
+  with zeros, outputs sliced back to their true shapes.
 * :func:`emit` turns the final graph into one Python callable that
   evaluates the node list on real tensors.  Each chunk loop is a Python
   ``for`` loop that slices its inputs (``narrow`` views), runs the body and
@@ -28,6 +31,7 @@ from typing import Any, Callable, Dict, FrozenSet, List, Sequence, Set, Tuple
 
 import torch
 from torch.fx import Node
+from torch.utils import _pytree as pytree
 
 from . import stats
 from .graph import Graph, alias_source, atom_bytes, node_outs, op_name, vshape
@@ -479,3 +483,68 @@ def emit(g: Graph) -> Callable[..., Tuple[Any, ...]]:
     """Emit the rewritten graph as one flat callable (counted as a lowering)."""
     stats.bump("lowering_emits")
     return graph_callable(g)
+
+
+# ---------------------------------------------------------------------------
+# Canonical bucket executables: the pad / slice protocol
+# ---------------------------------------------------------------------------
+# The wrapped function must be length-masked: real output positions may not
+# depend on padded content.  A causal forward is (its padding lies after
+# every real position); softmax over a padded axis is not.  The padded rows
+# of each output are sliced off.
+
+
+def pad_to_shape(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """Right-pad ``x`` with zeros up to ``shape`` (``x`` itself when equal)."""
+    target = tuple(int(s) for s in shape)
+    if tuple(x.shape) == target:
+        return x
+    if len(target) != x.dim() or any(t < s for s, t in zip(x.shape, target)):
+        raise ValueError(f"cannot pad shape {tuple(x.shape)} up to {target}")
+    out = x.new_zeros(target)
+    out[tuple(slice(0, s) for s in x.shape)] = x
+    return out
+
+
+def slice_to_shape(y: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """A view of ``y`` cut down to ``shape`` (``y`` itself when equal)."""
+    target = tuple(int(s) for s in shape)
+    if tuple(y.shape) == target:
+        return y
+    if len(target) != y.dim() or any(t > s for s, t in zip(y.shape, target)):
+        raise ValueError(f"cannot slice shape {tuple(y.shape)} down to {target}")
+    return y[tuple(slice(0, t) for t in target)]
+
+
+def emit_padded_call(fn: Callable, arg_specs, out_specs) -> Callable:
+    """Wrap a callable compiled at a bucket's canonical shapes.
+
+    ``fn``         callable in the original pytree signature, compiled at the
+                   canonical input shapes
+    ``arg_specs``  pytree of tensors (``meta`` or real) at those shapes
+    ``out_specs``  pytree of tensors (``meta``) at the TRUE output shapes for
+                   the caller's input shapes
+
+    The returned callable pads each input leaf up to its spec, calls ``fn``
+    and cuts every output leaf down to its true spec, so an output axis that
+    merely coincides with a padded extent is never cut.
+    """
+    flat_specs, spec_tree = pytree.tree_flatten(arg_specs)
+    out_shapes = [tuple(o.shape) for o in pytree.tree_leaves(out_specs)]
+
+    def padded_call(*args):
+        leaves, in_tree = pytree.tree_flatten(tuple(args))
+        if in_tree != spec_tree or len(leaves) != len(flat_specs):
+            raise ValueError("padded call arguments do not match the canonical"
+                             " executable's signature")
+        stats.bump("padded_calls")
+        padded = [pad_to_shape(x, s.shape) for x, s in zip(leaves, flat_specs)]
+        out = fn(*pytree.tree_unflatten(padded, in_tree))
+        del padded
+        out_leaves, out_tree = pytree.tree_flatten(out)
+        if len(out_leaves) != len(out_shapes):
+            raise ValueError("padded call returned another output structure")
+        return pytree.tree_unflatten([slice_to_shape(y, s)
+                                      for y, s in zip(out_leaves, out_shapes)], out_tree)
+
+    return padded_call

@@ -14,9 +14,13 @@ With a :class:`~repro_torch.core.config.ShapeBucketer` (the default), a
 plan searched at one shape is replayed (chunk extents rescaled, zero search
 and selection passes) for every other shape in the same bucket; the
 ``core.stats`` counters ``search_passes`` and ``plan_bucket_hits`` make that
-observable.  The plan cache (``cache=``), observability spans and plan
-accuracy wait for ROADMAP queue A items 6 and 9.  A port of
-``repro/core/staged.py``.
+observable.  With ``cache=`` (a :class:`~repro_torch.core.plan.PlanCache` or
+a directory) a search first looks up the exact structural key, then the
+shape bucket, and only then searches; plans persist across processes.  With
+``ChunkConfig(canonical_bucket_exec=True)`` one executable per shape bucket,
+compiled at the bucket's boundary, serves every length in the bucket by
+padding (zero traces, zero searches).  Observability spans and plan accuracy
+wait for ROADMAP queue A item 9.  A port of ``repro/core/staged.py``.
 """
 from __future__ import annotations
 
@@ -36,18 +40,12 @@ from .config import ChunkConfig, ShapeBucketer
 from .estimation import MemoryProfile, estimate_memory
 from .graph import Graph, trace
 from .kernel_dispatch import dispatch_graph
-from .lowering import apply_chunk, emit, validate_pending
-from .plan import ChunkPlan, PlanApplyError, PlanStage
+from .lowering import apply_chunk, emit, emit_padded_call, validate_pending
+from .plan import ChunkPlan, PlanApplyError, PlanStage, as_plan_cache, plan_cache_key
 from .search import search_chunks
 from .selection import rank_candidates
 
 _DEFAULT_BUCKETER = object()  # sentinel: "use a fresh default ShapeBucketer"
-
-
-def _no_cache(cache) -> None:
-    if cache is not None:
-        raise NotImplementedError("cache=: the plan cache and plan persistence are ROADMAP"
-                                  " queue A item 6")
 
 
 # ---------------------------------------------------------------------------
@@ -85,6 +83,14 @@ class AutoChunkResult:
     plan_stages: List[PlanStage] = field(default_factory=list)
     from_cache: bool = False
     cache_key: Optional[str] = None
+
+    def to_chunk_plan(self) -> ChunkPlan:
+        """Detach the compilation into a serializable :class:`ChunkPlan`."""
+        return ChunkPlan(cache_key=self.cache_key or "", budget_bytes=self.budget_bytes,
+                         baseline_peak=self.baseline_peak, final_peak=self.final_peak,
+                         stages=list(self.plan_stages),
+                         meta={"io_bytes": self.io_bytes, "weight_bytes": self.weight_bytes,
+                               "compile_s": round(self.elapsed_s, 3)})
 
     @property
     def reduction(self) -> float:
@@ -292,10 +298,22 @@ class Traced:
         devices = {x.device.type for x in self.flat_args if x.device.type != "meta"}
         self.device: Optional[str] = devices.pop() if len(devices) == 1 else None
         self.target: str = config.resolve_kernel_target(self.device)
+        self._cache_key: Optional[str] = None
 
     @property
     def memory_profile(self) -> MemoryProfile:
         return self.profile
+
+    def cache_key(self) -> str:
+        """Exact structural plan-cache key of this trace and config.  The
+        search knobs carry the kernel target this trace resolved: a plan
+        searched for the CPU's plain versions never replays for the card's
+        kernels, which refuse more sites."""
+        if self._cache_key is None:
+            config = self.cf.config
+            knobs = dict(config.search_knobs(), kernel_target=self.target)
+            self._cache_key = plan_cache_key(self.graph, self.budget_bytes, config.hyper, knobs)
+        return self._cache_key
 
     def bucket_key(self) -> Optional[str]:
         """Shape-bucket key (None when bucketing is disabled)."""
@@ -315,16 +333,34 @@ class Traced:
         return hashlib.sha256(blob.encode()).hexdigest()
 
     def search(self) -> "Planned":
-        """Run chunk search + selection, or replay the shape bucket's plan
-        (zero search and selection passes); a failed replay searches."""
+        """Run chunk search + selection, or replay a stored plan.
+
+        Lookup order: the exact structural key in the plan cache, then the
+        shape bucket (in memory, then the cache's aliases).  A hit replays
+        with zero search and selection passes; a replay that fails or is
+        rejected counts a miss and falls through to the search.
+        """
         cf, config = self.cf, self.cf.config
+        cache, ckey = cf.cache, self.cache_key()
+        if cache is not None:
+            saved = cache.get(ckey)
+            planned = self._replay(saved, rescale=False) if saved is not None else None
+            if planned is not None:
+                stats.bump("plan_cache_hits")
+                return planned
+            stats.bump("plan_cache_misses")
+
         bkey = self.bucket_key()
         if bkey is not None:
             saved = cf._bucket_plans.get(bkey)
-            planned = self._replay(saved) if saved is not None else None
+            if saved is None and cache is not None:
+                saved = cache.get_bucket(bkey)
+            planned = self._replay(saved, rescale=True) if saved is not None else None
             if planned is not None:
                 stats.bump("plan_bucket_hits")
                 cf.counters["bucket_hits"] += 1
+                if cache is not None:     # an exact hit next time at this shape
+                    cache.put(ckey, planned.plan)
                 return planned
             stats.bump("plan_bucket_misses")
             cf.counters["bucket_misses"] += 1
@@ -341,52 +377,63 @@ class Traced:
             cur = emit(lowered)
         else:  # nothing chunked: the function itself is the program
             cur = self.flat_fn
-        plan = ChunkPlan(cache_key=bkey or "", budget_bytes=self.budget_bytes,
+        plan = ChunkPlan(cache_key=ckey, budget_bytes=self.budget_bytes,
                          baseline_peak=self.baseline_peak, final_peak=prof.peak_bytes,
                          stages=pstages,
                          meta={"io_bytes": prof.io_bytes, "weight_bytes": prof.weight_bytes,
                                "compile_s": round(time.perf_counter() - self._t0, 3)})
+        if cache is not None:
+            cache.put(ckey, plan)
         if bkey is not None:
             cf._bucket_plans[bkey] = plan
+            if cache is not None:
+                cache.put_bucket(bkey, plan)
         return Planned(traced=self, plan=plan, records=records, flat_fn=cur,
                        graph=lowered, profile=prof, from_cache=False, bucket_hit=False)
 
-    def _replay(self, saved: ChunkPlan) -> Optional["Planned"]:
-        """Apply a bucket sibling's plan to this trace; None means search."""
+    def _replay(self, saved: ChunkPlan, *, rescale: bool) -> Optional["Planned"]:
+        """Apply a stored plan to this trace; None means search.
+
+        ``rescale`` marks a bucket sibling's plan: its chunk extents follow
+        the traced shapes, and it must pass the quality guard."""
         config = self.cf.config
         rec: List[Tuple[Graph, Any, int]] = []
         try:
             fn, g, prof = build_fn_from_plan(
-                self.graph, saved, rescale=True, record=rec,
+                self.graph, saved, rescale=rescale, record=rec,
                 kernel_dispatch=config.resolve_kernel_dispatch(), mask_mode=config.mask_mode,
                 target=self.target)
         except PlanApplyError:
             stats.bump("plan_replay_failures")
             return None
-        # quality guard, shape-invariant: accept the rescaled replay if it
-        # fits this shape's budget, or reaches about the relative reduction
-        # the plan reached at its home shape
-        ok = prof.peak_bytes <= self.budget_bytes
-        if not ok and saved.baseline_peak > 0:
-            home_ratio = saved.final_peak / saved.baseline_peak
-            ok = prof.peak_bytes <= self.baseline_peak * home_ratio * 1.05
-        if not ok:
-            stats.bump("plan_bucket_rejects")
-            return None
-        peaks = [estimate_memory(gi).peak_bytes for gi, _, _ in rec] + [prof.peak_bytes]
-        pstages = [PlanStage.from_candidate(gi, cand, n, cost=saved.stages[i].cost,
-                                            peak_before=peaks[i], peak_after=peaks[i + 1])
-                   for i, (gi, cand, n) in enumerate(rec)]
-        plan = ChunkPlan(cache_key=saved.cache_key, budget_bytes=self.budget_bytes,
-                         baseline_peak=self.baseline_peak, final_peak=prof.peak_bytes,
-                         stages=pstages, meta=dict(saved.meta, rescaled=True))
+        if rescale:
+            # quality guard, shape-invariant: accept the rescaled replay if it
+            # fits this shape's budget, or reaches about the relative
+            # reduction the plan reached at its home shape
+            ok = prof.peak_bytes <= self.budget_bytes
+            if not ok and saved.baseline_peak > 0:
+                home_ratio = saved.final_peak / saved.baseline_peak
+                ok = prof.peak_bytes <= self.baseline_peak * home_ratio * 1.05
+            if not ok:
+                stats.bump("plan_bucket_rejects")
+                return None
+            peaks = [estimate_memory(gi).peak_bytes for gi, _, _ in rec] + [prof.peak_bytes]
+            pstages = [PlanStage.from_candidate(gi, cand, n, cost=saved.stages[i].cost,
+                                                peak_before=peaks[i], peak_after=peaks[i + 1])
+                       for i, (gi, cand, n) in enumerate(rec)]
+            plan = ChunkPlan(cache_key=self.cache_key(), budget_bytes=self.budget_bytes,
+                             baseline_peak=self.baseline_peak, final_peak=prof.peak_bytes,
+                             stages=pstages,
+                             meta=dict(saved.meta, rescaled_from=saved.cache_key))
+        else:
+            plan = saved
         records = [StageRecord(stage=i, region=(st.s, st.e), n_chunks=st.n_chunks,
                                chunk_extent=st.chunk_extent, n_loop_eqns=len(st.in_loop),
                                n_hoisted=len(st.hoisted), cost=st.cost,
                                peak_before=st.peak_before, peak_after=st.peak_after)
                    for i, st in enumerate(plan.stages)]
         return Planned(traced=self, plan=plan, records=records, flat_fn=fn, graph=g,
-                       profile=prof, from_cache=True, bucket_hit=True)
+                       profile=prof, from_cache=True, bucket_hit=rescale)
 
 
 @dataclass
@@ -476,17 +523,23 @@ class ChunkedFunction:
                  bucketer=_DEFAULT_BUCKETER):
         if not callable(fn):
             raise TypeError(f"autochunk target must be callable, got {fn!r}")
-        _no_cache(cache)
         self.fn = fn
         self.config = config if config is not None else ChunkConfig()
         if not isinstance(self.config, ChunkConfig):
             raise TypeError(f"config must be a ChunkConfig, got {type(self.config).__name__}")
+        self.cache = as_plan_cache(cache)
         self.bucketer: Optional[ShapeBucketer] = (
             ShapeBucketer() if bucketer is _DEFAULT_BUCKETER else bucketer)
         self._bucket_plans: Dict[str, ChunkPlan] = {}
         self._compiled: Dict[Any, CompiledFunction] = {}
+        # canonical bucket executables: one CompiledFunction per bucket
+        # signature, compiled at the boundary; `_padded` memoizes the
+        # pad / slice wrapper per exact (non-canonical) input signature
+        self._bucket_execs: Dict[Any, CompiledFunction] = {}
+        self._padded: Dict[Any, Callable] = {}
         self.counters: Dict[str, int] = {"calls": 0, "compiles": 0, "shape_hits": 0,
-                                         "bucket_hits": 0, "bucket_misses": 0}
+                                         "bucket_hits": 0, "bucket_misses": 0,
+                                         "bucket_exec_hits": 0, "bucket_exec_compiles": 0}
         functools.update_wrapper(self, fn, updated=())
 
     def trace(self, *example_args) -> Traced:
@@ -497,7 +550,17 @@ class ChunkedFunction:
 
     def compile(self, *example_args) -> CompiledFunction:
         """One-shot: ``trace -> search -> compile`` for these arguments."""
-        return self.trace(*example_args).search().compile()
+        compiled = self.trace(*example_args).search().compile()
+        self._maybe_evict()
+        return compiled
+
+    def _maybe_evict(self) -> int:
+        """Honour the config's eviction knobs after a compile (the only point
+        where this transform grows the plan cache)."""
+        cfg = self.config
+        if self.cache is None or cfg.cache_max_entries is None:
+            return 0
+        return self.cache.evict(policy=cfg.cache_policy, max_entries=cfg.cache_max_entries)
 
     def _shape_key(self, args) -> Any:
         leaves, spec = pytree.tree_flatten(tuple(args))
@@ -510,10 +573,69 @@ class ChunkedFunction:
         if compiled is not None:
             self.counters["shape_hits"] += 1
             return compiled(*args)
+        padded_fn = self._padded.get(key)
+        if padded_fn is not None:
+            # a length already wrapped: pad -> the bucket's executable -> slice
+            self.counters["shape_hits"] += 1
+            self.counters["bucket_exec_hits"] += 1
+            stats.bump("bucket_exec_hits")
+            return padded_fn(*args)
+        if self.config.canonical_bucket_exec and self.bucketer is not None:
+            return self._canonical_call(key, args)
         self.counters["compiles"] += 1
         compiled = self.compile(*args)
         self._compiled[key] = compiled
         return compiled(*args)
+
+    # -- canonical bucket executables -----------------------------------
+    def _canonical_specs(self, args):
+        """The bucket signature of ``args`` and the arguments to compile its
+        executable at: each activation leaf a ``meta`` tensor at the
+        boundary shape, each weight leaf itself (padding parameters would
+        change the program; the real weights carry the device the compile
+        targets)."""
+        flat, in_spec, weight_flat = _flatten_spec(args, self.config.weight_argnums)
+        wset = frozenset(weight_flat)
+        specs = [x if i in wset else
+                 torch.empty(self.bucketer.canonical_shape(x.shape), dtype=x.dtype,
+                             device="meta")
+                 for i, x in enumerate(flat)]
+        key = (str(in_spec), tuple(_leaf_sig(c) + (x.device.type,)
+                                   for c, x in zip(specs, flat)))
+        needs_pad = any(c.shape != x.shape for c, x in zip(specs, flat))
+        return key, pytree.tree_unflatten(specs, in_spec), needs_pad
+
+    def _canonical_call(self, key, args):
+        """Serve ``args`` through their bucket's canonical executable.
+
+        The first call in a bucket compiles one CompiledFunction at the
+        boundary shape; every other length in the bucket is padded up and
+        its outputs sliced back: zero traces, zero searches.  The function
+        must be length-masked (see ``ChunkConfig.canonical_bucket_exec``).
+        """
+        ckey, spec_args, needs_pad = self._canonical_specs(args)
+        compiled = self._bucket_execs.get(ckey)
+        if compiled is None:
+            stats.bump("bucket_exec_misses")
+            stats.bump("bucket_exec_compiles")
+            self.counters["compiles"] += 1
+            self.counters["bucket_exec_compiles"] += 1
+            compiled = self.compile(*spec_args)
+            self._bucket_execs[ckey] = compiled
+        else:
+            stats.bump("bucket_exec_hits")
+            self.counters["bucket_exec_hits"] += 1
+        if not needs_pad:
+            self._compiled[key] = compiled      # the canonical shape itself
+            return compiled(*args)
+        # the true output shapes from running the function on meta tensors at
+        # the true shapes (no graph capture, no search): the counterpart of
+        # jax.eval_shape
+        with torch.no_grad():
+            out_specs = self.fn(*pytree.tree_map(_to_meta, tuple(args)))
+        padded_fn = emit_padded_call(compiled, pytree.tree_map(_to_meta, spec_args), out_specs)
+        self._padded[key] = padded_fn
+        return padded_fn(*args)
 
     @property
     def autochunk_result(self) -> Optional[AutoChunkResult]:
@@ -526,6 +648,10 @@ class ChunkedFunction:
         out = dict(self.counters)
         out["compiled_shapes"] = len(self._compiled)
         out["bucket_plans"] = len(self._bucket_plans)
+        out["bucket_execs"] = len(self._bucket_execs)
+        out["padded_shapes"] = len(self._padded)
+        if self.cache is not None:
+            out["plan_cache"] = self.cache.stats()
         return out
 
     def __repr__(self) -> str:

@@ -18,6 +18,7 @@ COUNTERS = (
     "rank_calls",
     "search_passes",
     "selection_passes",
+    "codegen_calls",        # one-shot per-stage closures (codegen.build_chunked_fn)
     # lowering: every apply_chunk rewrite (beam candidates included), and
     # one emit per compiled plan
     "lowering_rewrites",
@@ -28,12 +29,25 @@ COUNTERS = (
     "kernel_dispatch_hits",
     "kernel_dispatch_misses",
     "kernel_dispatch_computed_mask",
+    # the plan cache (core.plan.PlanCache): exact-key lookups that replayed
+    # (a hit always means zero search passes) or searched, and plan records
+    # removed by PlanCache.evict (a plan with its bucket aliases)
+    "plan_cache_hits",
+    "plan_cache_misses",
+    "plan_evictions",
     # shape-bucketed plan reuse (core.config.ShapeBucketer)
     "plan_replays",
     "plan_replay_failures",
     "plan_bucket_hits",
     "plan_bucket_misses",
     "plan_bucket_rejects",
+    # canonical bucket executables (ChunkConfig.canonical_bucket_exec): calls
+    # served by a bucket's executable (zero traces, zero searches), the one
+    # compile each bucket pays at its boundary, and calls padded up to it
+    "bucket_exec_hits",
+    "bucket_exec_misses",
+    "bucket_exec_compiles",
+    "padded_calls",
     # paged serving: physical pages leaving / re-entering the free list,
     # planner-sized prompt chunks run, steps that carried prefill and decode
     # rows in one ragged batch, and admissions refused for lack of pages

@@ -65,18 +65,22 @@ class Model(ParamTree):
             return blocks[i]
         return _index_tree(blocks, i)
 
-    def forward(self, tokens, *, window=None):
-        return forward(self.cfg, self, {"tokens": tokens}, window=window)
+    def forward(self, tokens=None, *, window=None, **inputs):
+        """``inputs`` are the batch's other entries (``frames``, ``patches``)."""
+        batch = {"tokens": tokens, **inputs} if tokens is not None else inputs
+        return forward(self.cfg, self, batch, window=window)
 
 
 def logits_fn(model: Model):
     """``fn(params, batch) -> logits``: the forward over a dict of parameter
-    tensors (``dict(model.named_parameters())``) and a ``{"tokens": ...}``
-    batch.  The form the AutoChunk compiler traces: the weights are inputs
-    of the graph, not constants baked into it."""
+    tensors (``dict(model.named_parameters())``) and a batch dict
+    (``tokens``, or ``frames`` / ``patches`` as the family takes).  The form
+    the AutoChunk compiler traces: the weights are inputs of the graph, not
+    constants baked into it."""
 
     def fn(params, batch):
-        return torch.func.functional_call(model, params, (batch["tokens"],))[0]
+        rest = {k: v for k, v in batch.items() if k != "tokens"}
+        return torch.func.functional_call(model, params, (batch.get("tokens"),), rest)[0]
 
     return fn
 
@@ -130,7 +134,8 @@ def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0,
                 *, device="cuda") -> Model:
     """Random parameters with the JAX package's distribution (not its numbers).
 
-    ``generator`` is a ``torch.Generator`` on ``device`` or an int seed.
+    ``generator`` is a ``torch.Generator`` on ``device`` or an int seed.  On
+    ``meta`` only shapes and dtypes are made and ``generator`` is unused.
     """
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
@@ -140,7 +145,9 @@ def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0,
     if cfg.mla:
         raise NotImplementedError("MLA attention (ROADMAP queue A item 10)")
     dev = resolve_device(device)
-    if isinstance(generator, int):
+    if dev.type == "meta":
+        generator = None
+    elif isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
     p: Dict[str, Any] = {"embed": L.embed_params(cfg, generator, device=dev)}
     p["final_norm"] = L.norm_params(cfg, cfg.d_model, device=dev)

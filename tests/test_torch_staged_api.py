@@ -80,7 +80,6 @@ def test_config_validation(kw):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh_spec={"axes": {"data": 2}}), "item 11"),
-    (dict(canonical_bucket_exec=True), "item 6"),
     (dict(autotune="on"), "item 7"),
 ])
 def test_config_unported_knobs_name_their_roadmap_item(kw, item):
@@ -229,8 +228,6 @@ def test_bucketer_none_disables_bucketing():
 
 def test_unported_surfaces_raise():
     w, x = _mini_weights(), _x()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        autochunk(_mini_block, ChunkConfig(), cache="/nonexistent")
     with pytest.raises(NotImplementedError):
         autochunk(_mini_block, (w, x), 0.5)          # the deprecated JAX form
     with pytest.raises(ValueError):
