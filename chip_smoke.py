@@ -11,15 +11,17 @@ registers, shared memory and spills (``-Xptxas -v``) and, from
 the bf16 FFN kernel must have HGMMA, the bf16 SSD kernel HMMA or HGMMA,
 their f32 kernels, the mask's tile pre-pass and the RG-LRU kernels none),
 and drives the port's paths, two at
-gpt-paper's full width, one at minitron-4b's, one at phi3-mini-3.8b's, one
-at mamba2-1.3b's and one at recurrentgemma-9b's:
+gpt-paper's full width, one at minitron-4b's, two at phi3-mini-3.8b's, one
+at mamba2-1.3b's and two at recurrentgemma-9b's:
 
 * serving: the paged engine, its kernel held against its plain version at
-  the serving shapes and at edge cases (split decode batches with a row of
-  q_len 0 and splits past kv_len, GQA hd 256), the served tokens' digest
-  beside those served with the plain version swapped in, the served logits
-  against the dense forward, and phi3-mini-3.8b's hd 96, which the paged
-  kernel has no instance for, refused when the engine is built;
+  the serving shapes (gpt-paper's and phi3-mini's heads) and at edge cases
+  (split decode batches with a row of q_len 0 and splits past kv_len, GQA
+  hd 256, hd 96), the served tokens' digest beside those served with the
+  plain version swapped in, the served logits against the dense forward;
+  then phi3-mini-3.8b (hd 96) served the same way at full width, its fp32
+  served logits at 4 layers against its dense forward, and a head dim the
+  paged kernel has no instance for (48) refused when the engine is built;
 * the AutoChunk compiler: the 12-layer bf16 forward of 8192 tokens compiled
   at a 0.2 activation budget, once with the computed-mask attention kernel
   and once with ``mask_mode="bool"`` (the bool-mask kernel); predicted and
@@ -27,7 +29,9 @@ at mamba2-1.3b's and one at recurrentgemma-9b's:
   forwards, and chunked against unchunked logits in float32.
   Both attention kernels are then held against their plain versions at the
   compiled chunk shape (plus a window and a GQA case, ragged Sq and Skv,
-  hd 32, and a window whose first rows see no live key); the masked one
+  hd 32, a window whose first rows see no live key, and at hd 80, 96 and
+  256 each a ragged causal case, such a window and recurrentgemma's MQA
+  in its 2048-key window); the masked one
   also with a random per-head mask holding a row with no live key, and at
   the GQA cases with per-head masks holding dead tiles and such a row;
 * the plan cache: the precompile CLI, run as a subprocess, writes the plan
@@ -53,8 +57,8 @@ at mamba2-1.3b's and one at recurrentgemma-9b's:
   against its plain version at the block's chunk, 2048 and 17 rows, with
   the fused and the separate weights;
 * phi3-mini-3.8b per block (2 layers, full width, S 8192, budget 0.03):
-  its hd 96 has no attention kernel, so dispatch leaves that loop generic
-  (a miss, no ``ValueError``) while the SwiGLU MLP runs on ``chunked_ffn``;
+  its attention (hd 96) on ``computed_attention`` and its SwiGLU MLP on
+  ``chunked_ffn``, the chunked block's peak within 5% of its prediction,
   float32 per-block logits within 1e-3 of the unchunked ones;
 * the SSM family: mamba2-1.3b's 48-layer bf16 forward of 8192 tokens, each
   block's scan on ``ssd_scan``, unchunked and per block with
@@ -65,7 +69,14 @@ at mamba2-1.3b's and one at recurrentgemma-9b's:
   bf16 logits bounded against them;
 * the hybrid family: recurrentgemma-9b's 38-layer bf16 forward of 8192
   tokens, its 26 RG-LRU layers on ``rglru_scan``, and its float32 logits
-  at 3 layers (two RG-LRU, one local attention) against the plain version.
+  at 3 layers (two RG-LRU, one local attention) against the plain version;
+  then the same forward under ``autochunk_budget=0.1``: one plan for the
+  attention block (its attention on ``computed_attention`` at hd 256, 16
+  query heads over 1) and one for the RG-LRU block (its scan one op node),
+  each block's peak within 5% of its prediction, the launches, peaks and
+  times beside the unbudgeted forward, float32 per-block logits at 3 layers
+  within 1e-3 of the unbudgeted ones and bf16 no further from float32 than
+  1.5 times the unbudgeted bf16 logits.
   Both scans are first held against their plain versions (mamba2's shape,
   a length the chunk does not divide, the reduced config's chunk 16, a
   shape off every tile edge (p 48, n 64, chunk 100), and with dt and A
@@ -75,7 +86,10 @@ at mamba2-1.3b's and one at recurrentgemma-9b's:
 
 Each path runs with the kernels' launch counts zeroed just before and read
 just after.  Every kernel is timed beside its bound, its plain version and
-the one PyTorch call that computes the same function.  Any failed phase
+the one PyTorch call that computes the same function; the attention
+kernels also at the new head dims' model shapes (phi3-mini's chunk at hd
+96, recurrentgemma's at hd 256, a non-causal hd-80 shape), each held
+against its plain version at that shape before it is timed.  Any failed phase
 exits non-zero.  Without a CUDA device, or run from a directory that lacks
 the repository's ``src/``, it exits non-zero and prints no result.
 
@@ -293,6 +307,14 @@ PAGED_EDGE_SHAPES = {
                                  hd=256),
     "edge_mixed_gqa_hd256": dict(q_lens=[3, 1, 0, 9], kv_lens=[40, 300, 0, 1200], H=16, Kv=2,
                                  hd=256),
+    # hd 96 (phi3-mini): lane groups of 16 (bf16) or 32 (f32) lanes with 12
+    # or 24 loading; a split decode batch at phi3's heads, a mixed batch at
+    # phi3's heads and one under GQA (8 query vectors a block)
+    "edge_split_hd96": dict(q_lens=[1, 0, 1, 1], kv_lens=[513, 0, 2048, 5], H=32, Kv=32, hd=96),
+    "edge_mixed_hd96": dict(q_lens=[3, 1, 0, 9], kv_lens=[40, 300, 0, 1200], H=32, Kv=32,
+                            hd=96),
+    "edge_mixed_gqa_hd96": dict(q_lens=[3, 1, 0, 9], kv_lens=[40, 300, 0, 1200], H=16, Kv=4,
+                                hd=96),
 }
 
 
@@ -361,6 +383,147 @@ def time_paged_kernel(torch, F, PA, shapes, cases, flush, card):
     return timed
 
 
+def serve_timed(torch, PA, stats, engine, cfg, reqs, label=""):
+    """Serve ``reqs`` on ``engine`` with the paged kernel's launch count
+    zeroed just before and read just after; every request must finish with
+    its new tokens, in the vocabulary, through at least one mixed step, with
+    every page freed and one launch a layer a step.  Returns (wall seconds,
+    launches, stats delta, steps, tokens)."""
+    before = stats.snapshot()
+    torch.cuda.synchronize()
+    PA.paged_attention_blocked.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = PA.paged_attention_blocked.launches
+    d = stats.delta(before)
+    steps = engine.sched_stats["steps"]
+    toks = sum(len(r.generated) for r in reqs)
+    check(all(r.done and len(r.generated) == SERVE["max_new"] for r in reqs),
+          f"{label}not every request finished with max_new tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          f"{label}a generated token lies outside the vocabulary")
+    check(d["mixed_steps"] > 0, f"{label}no mixed prefill+decode step")
+    check(d["pages_allocated"] == d["pages_freed"] > 0,
+          f"{label}pages allocated {d['pages_allocated']} != freed {d['pages_freed']}")
+    check(launches == cfg.n_layers * steps > 0,
+          f"{label}paged_attention launched {launches} times in {steps} steps")
+    return wall, launches, d, steps, toks
+
+
+def serve_plain_swapped(PA, engine, reqs):
+    """The same requests again with the plain version put where the engine
+    calls the kernel (this script's comparison; the engine has no switch).
+    Returns the requests and how many of their tokens equal the kernel's."""
+    from repro_torch.serving import Request
+    from repro_torch.serving import engine as serving_engine
+
+    plain_reqs = [Request(rid=200 + r.rid, prompt=r.prompt, max_new_tokens=SERVE["max_new"])
+                  for r in reqs]
+    serving_engine.paged_attention_blocked = PA.paged_attention_blocked_plain
+    try:
+        for r in plain_reqs:
+            engine.submit(r)
+        engine.run()
+    finally:
+        serving_engine.paged_attention_blocked = PA.paged_attention_blocked
+    same = sum(a == b for r, rp in zip(reqs, plain_reqs) for a, b in zip(r.generated, rp.generated))
+    return plain_reqs, same
+
+
+def serve_phi3(torch, PA, stats, M, lens, card):
+    """phi3-mini-3.8b served at full width (32 layers, bf16) by the paged
+    engine on the card, its hd 96 on the paged kernel: the serving run's
+    requests again, the launch count zeroed just before and read just
+    after, then the same requests with the plain version swapped in (which
+    served tokens the kernel's rounding changed, for information).  A head
+    dim without a paged instance (48) is still refused at construction."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving import PagedServeEngine, Request
+
+    cfg = get_config("phi3-mini-3.8b")
+    check(PA.cuda_refusal(cfg.hd) is None, f"no paged kernel instance at hd {cfg.hd}")
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    engine = PagedServeEngine(cfg, params, max_seqs=SERVE["max_seqs"], max_len=SERVE["max_len"],
+                              page_size=SERVE["page_size"], prefill_chunk="auto",
+                              autochunk_budget=SERVE["budget"], device="cuda")
+    engine.submit(Request(rid=-1, prompt=[1] * 16, max_new_tokens=2))   # warm-up
+    engine.run()
+    engine.finished.clear()
+    engine.sched_stats.update(dict.fromkeys(engine.sched_stats, 0))
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                    max_new_tokens=SERVE["max_new"]) for i, n in enumerate(lens)]
+    wall, launches, d, steps, toks = serve_timed(torch, PA, stats, engine, cfg, reqs, "phi3: ")
+    ttft = [r.ttft_s for r in reqs]
+    plan = engine.prefill_plan
+    print(f"[serve] phi3-mini-3.8b bf16 full width (L={cfg.n_layers} d={cfg.d_model}"
+          f" H={cfg.n_heads} hd={cfg.hd}): {len(reqs)} requests (prompts {lens[0]}..{lens[-1]}),"
+          f" {toks} tokens in {wall:.3f}s = {toks / wall:.1f} tok/s, {steps} steps"
+          f" ({engine.sched_stats['mixed_steps']} mixed), TTFT mean {statistics.mean(ttft):.3f}s"
+          f" max {max(ttft):.3f}s; {card}")
+    print(f"[serve] phi3-mini-3.8b planned prefill chunk {engine.prefill_chunk} at budget"
+          f" {SERVE['budget']}: predicted one-block peak {plan.peak_bytes} B of budget"
+          f" {plan.budget_bytes} B (unchunked {plan.baseline_peak_bytes} B)")
+    print(f"[serve] phi3-mini-3.8b paged_attention launches {launches} = {cfg.n_layers} layers x"
+          f" {steps} steps; pages allocated {d['pages_allocated']} freed {d['pages_freed']};"
+          f" served tokens sha256 {token_digest(reqs)}")
+    plain_reqs, same = serve_plain_swapped(PA, engine, reqs)
+    print(f"[serve] phi3-mini-3.8b with the plain version swapped in: served tokens sha256"
+          f" {token_digest(plain_reqs)}; {same} of {toks} tokens equal to the kernel's")
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # a head dim the paged kernel has no instance for: refused at
+    # construction, before anything is allocated, not at the first step
+    hcfg = cfg.with_(n_heads=64, n_kv_heads=64)
+    check(hcfg.hd == 48 and PA.cuda_refusal(48) is not None, "hd 48 has a paged instance")
+    try:
+        PagedServeEngine(hcfg, None, max_seqs=2, max_len=1024, page_size=SERVE["page_size"],
+                         device="cuda")
+    except NotImplementedError as e:
+        print(f"[serve] hd {hcfg.hd} on the card: the engine refuses at construction: {e}")
+    else:
+        fail("PagedServeEngine was built for hd 48 on the card")
+    return dict(launches=launches, steps=steps, tokens=toks, wall_s=wall, tok_s=toks / wall,
+                ttft_mean_s=statistics.mean(ttft), ttft_max_s=max(ttft),
+                prefill_chunk=plan.chunk, plain_tokens_equal=same)
+
+
+def check_served_logits(torch, M, cfg32, seed, prompt, label=""):
+    """The fp32 engine's logits of the last prompt token (the prompt
+    prefilled in chunks) against the dense forward, within 1e-3."""
+    from repro_torch.serving import PagedServeEngine, Request
+
+    params32 = M.init_params(cfg32, torch.Generator(device="cuda").manual_seed(seed),
+                             device="cuda")
+    engine = PagedServeEngine(cfg32, params32, max_seqs=2, max_len=1024,
+                              page_size=SERVE["page_size"], prefill_chunk="auto",
+                              autochunk_budget=SERVE["budget"], device="cuda")
+    captured = []
+    run_ragged = engine.run_ragged
+    engine.run_ragged = lambda *a: captured.append(run_ragged(*a)) or captured[-1]
+    engine.submit(Request(rid=0, prompt=prompt, max_new_tokens=1))
+    engine.run()
+    served = captured[-1][0]
+    dense = M.forward(cfg32, params32, {"tokens": torch.tensor([prompt], device="cuda")})[0]
+    dense = dense[0, -1]
+    err = float((served - dense).abs().max())
+    check(served.shape == dense.shape == (cfg32.vocab_padded,), "logit shapes differ")
+    check(bool(torch.isfinite(served[:cfg32.vocab_size]).all()), "non-finite served logits")
+    print(f"[logits] {label}fp32 prompt of {len(prompt)} in {len(captured)} chunks of"
+          f" {engine.prefill_chunk}: served vs dense forward max_abs_err {err:.3e} (limit 1e-3)")
+    check(err <= 1e-3, f"{label}served logits differ from the dense forward by {err}")
+    del engine, params32, captured, served, dense
+    torch.cuda.empty_cache()
+    return err
+
+
 # ---------------------------------------------------------------------------
 # The compiler path: autochunk on gpt-paper with the chunked-attention kernels
 # ---------------------------------------------------------------------------
@@ -408,6 +571,20 @@ ATTENTION_EDGE_CASES = [
     dict(name="ragged_17x100", N=2, group=3, hd=128, Sq=17, Skv=100, off=83, window=None),
     dict(name="hd32", N=4, group=1, hd=32, Sq=300, Skv=700, off=400, window=None),
     dict(name="window_dead_rows", N=4, group=1, hd=64, Sq=200, Skv=512, off=-40, window=128),
+]
+# the head dims of hubert-xlarge (80), phi3-mini (96) and recurrentgemma's
+# local attention (256), each causal with ragged Sq and Skv and a q_offset
+# short of the last key, in a window whose first rows see no key, and as
+# recurrentgemma's MQA (16 query heads over 1 kv head) in its 2048-key
+# window cut by the band
+ATTENTION_HD_CASES = [
+    c for hd in (80, 96, 256) for c in (
+        dict(name=f"hd{hd}_ragged", N=3, group=2, hd=hd, Sq=333, Skv=1500, off=1100,
+             window=None),
+        dict(name=f"hd{hd}_window_dead_rows", N=4, group=1, hd=hd, Sq=200, Skv=512, off=-40,
+             window=128),
+        dict(name=f"hd{hd}_mqa_window", N=1, group=16, hd=hd, Sq=700, Skv=3000, off=2300,
+             window=2048))
 ]
 
 
@@ -785,27 +962,38 @@ def run_cache_phase(torch, CA, stats, M, cfg, cold, card):
                 padded_fp32_err=err)
 
 
-def time_attention_kernels(torch, F, CA, chunk, ext, flush, card, *, N=12, group=1, hd=64,
+def time_attention_kernels(torch, F, CA, chunk, ext, flush, card, errs, *, N=12, group=1,
+                           hd=64, window=None, causal=True,
                            names=("computed_attention", "masked_attention")):
     """Each kernel at one chunk shape (by default the compiled gpt-paper
     forward's: gpt-paper heads, the last chunk, which sees every key) in
-    bf16, beside its bound, its plain version and SDPA with the same mask."""
+    bf16, first held against its plain version under ``TOL`` (the max error
+    merged into ``errs``), then timed beside its bound, its plain version
+    and SDPA with the same mask (causal unless ``causal`` is false, within
+    ``window`` keys if given)."""
     H, off = N * group, ext - chunk
     q, k, v = attention_case(torch, N=N, group=group, Sq=chunk, Skv=ext, hd=hd,
                              dtype=torch.bfloat16, seed=7)
     scale = hd ** -0.5
     qpos = off + torch.arange(chunk, device="cuda")[:, None]
-    mask = torch.arange(ext, device="cuda")[None, :] <= qpos
+    kpos = torch.arange(ext, device="cuda")[None, :]
+    mask = kpos <= qpos if causal else torch.ones((chunk, ext), dtype=torch.bool,
+                                                  device="cuda")
+    if window:
+        mask = mask & (qpos - kpos < window)
     q4, k4, v4 = q[None], k[None], v[None]
     io = 2 * (2 * H * chunk * hd + 2 * N * ext * hd)      # q, out, K, V in bf16
+    pairs = H * band_pairs(chunk, ext, off, causal, window)
     runs = {
         "computed_attention": (
-            H * band_pairs(chunk, ext, off, True, None), io,
-            lambda: CA.computed_attention(q, k, v, off, scale=scale, group=group),
-            lambda: CA.computed_attention_plain(q, k, v, off, scale=scale, group=group)),
+            pairs, io,
+            lambda: CA.computed_attention(q, k, v, off, scale=scale, causal=causal,
+                                          window=window, group=group),
+            lambda: CA.computed_attention_plain(q, k, v, off, scale=scale, causal=causal,
+                                                window=window, group=group)),
         # the band's live pairs: the kernel skips the dead tiles
         "masked_attention": (
-            H * band_pairs(chunk, ext, off, True, None), io + chunk * ext,
+            pairs, io + chunk * ext,
             lambda: CA.masked_attention(q, k, v, mask[None], scale=scale, group=group),
             lambda: CA.masked_attention_plain(q, k, v, mask[None], scale=scale, group=group)),
     }
@@ -813,16 +1001,23 @@ def time_attention_kernels(torch, F, CA, chunk, ext, flush, card, *, N=12, group
     for name in names:
         pairs, nbytes, kernel, plain = runs[name]
         ops = 4 * pairs * hd
+        err = hold(torch, name, f"bf16 Sq={chunk} Skv={ext} H={H} Kv={N} hd={hd}"
+                   f" q_offset={off}{f' window={window}' if window else ''}"
+                   f"{'' if causal else ' not causal'}", kernel, plain, TOL["bfloat16"])
+        errs[(name, "bfloat16")] = max(errs.get((name, "bfloat16"), 0.0), err)
         t = timed[name] = {
+            "max_abs_err": err,
             "ms": time_ms(torch, kernel, flush),
             "plain_ms": time_ms(torch, plain, flush),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, attn_mask=mask, scale=scale, enable_gqa=group > 1), flush),
             **bound(nbytes, ops),
             "sq": chunk, "skv": ext, "q_offset": off, "heads": H, "kv_heads": N, "hd": hd,
+            "window": window, "causal": causal,
         }
         print(f"[time] {name} bf16 (H={H} Kv={N} Sq={chunk} Skv={ext} hd={hd}"
-              f" q_offset={off}): kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms"
+              f" q_offset={off}{f' window={window}' if window else ''}"
+              f"{'' if causal else ' not causal'}): kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms"
               f" ({t['bound_by']}; {nbytes} B, {ops} ops), plain {t['plain_ms']:.4f} ms,"
               f" SDPA {t['library_ms']:.4f} ms, {t['bound_ms'] / t['ms']:.1%} of bound; {card}")
     return timed
@@ -1180,11 +1375,12 @@ PHI3 = dict(arch="phi3-mini-3.8b", seq_len=8192, layers=2,
 
 
 def run_phi3_forward(torch, CA, CF, stats, M, card):
-    """phi3-mini-3.8b's per-block bf16 forward at full width, 2 layers, S
-    8192: it runs (no ValueError for hd 96), attention misses dispatch and
-    stays a generic chunk loop, chunked_ffn launches once per SwiGLU chunk
-    (counts zeroed just before, read just after).  Then float32 logits of
-    the same depth, per block against unchunked, within 1e-3."""
+    """phi3-mini-3.8b's per-block forward at full width, 2 layers, S 8192,
+    in bf16 and then float32: one block compiled at the first layer, its
+    attention (hd 96) on ``computed_attention`` and its SwiGLU MLP on
+    ``chunked_ffn`` (counts zeroed just before the forward and read just
+    after); the chunked block's measured peak on layer 0 within 5% of its
+    prediction; float32 per-block logits within 1e-3 of unchunked."""
     from repro_torch.configs import get_config
 
     cfg = get_config(PHI3["arch"]).with_(n_layers=PHI3["layers"])
@@ -1192,6 +1388,7 @@ def run_phi3_forward(torch, CA, CF, stats, M, card):
     out = {}
     for dt_name in ("bfloat16", "float32"):
         c = cfg.with_(dtype=dt_name)
+        c_ac = c.with_(autochunk_budget=PHI3["budget"])
         model = M.init_params(c, torch.Generator(device="cuda").manual_seed(12), device="cuda")
         batch = block_batch(torch, c, 12)
         M._AC_CACHE.clear()
@@ -1202,38 +1399,61 @@ def run_phi3_forward(torch, CA, CF, stats, M, card):
             CA.computed_attention.launches = CA.masked_attention.launches = 0
             CF.chunked_ffn.launches = 0
             t0 = time.perf_counter()
-            y1 = M.forward(c.with_(autochunk_budget=PHI3["budget"]), model, batch)[0]
+            y1 = M.forward(c_ac, model, batch)[0]
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
         d = stats.delta(before)
-        n_ffn = CF.chunked_ffn.launches
-        n_attn = CA.computed_attention.launches + CA.masked_attention.launches
+        n_ffn, n_attn = CF.chunked_ffn.launches, CA.computed_attention.launches
+        n_masked = CA.masked_attention.launches
         (cf,) = M._AC_CACHE.values()
-        loops = block_loops(cf.trace(M._index_tree(model["blocks"], 0),
-                                     M.embed_inputs(c, model, batch)[0]).search())
+        r = cf.autochunk_result
+        p0 = M._index_tree(model["blocks"], 0)
+        h0 = M.embed_inputs(c, model, batch)[0]
+        loops = block_loops(cf.trace(p0, h0).search())
         err = max_logit_err(y1, y0, c.vocab_size)
-        check(bool(torch.isfinite(y1[..., :c.vocab_size]).all()), f"phi3 {dt_name}: non-finite")
+        check(bool(torch.isfinite(y1[..., :c.vocab_size]).all()),
+              f"phi3 {dt_name}: non-finite per-block logits")
+        del y0, y1
+        _, _, ms1 = measure_forward(torch, lambda: M.forward(c_ac, model, batch)[0], ())
+
+        def block(p, x):
+            return M.dense_block_full(c, p, x, window=None, causal=True)
+
+        with torch.no_grad():
+            block(p0, h0)
+            _, bpeak0, _ = measure_forward(torch, block, (p0, h0))
+            _, bpeak1, _ = measure_forward(torch, cf, (p0, h0))
+        attn, swiglu = loops.get("attention", (0, 0)), loops.get("swiglu", (0, 0))
         print(f"[forward] phi3-mini-3.8b per-block {dt_name} L={L} S={S} budget"
-              f" {PHI3['budget']}: {secs:.2f}s with the block compile; dispatch hits"
-              f" {d['kernel_dispatch_hits']}, misses {d['kernel_dispatch_misses']} (hd"
-              f" {c.hd}: attention keeps its loop); chunked_ffn launches {n_ffn} = {L} layers"
-              f" x {loops.get('swiglu', (0, 0))[1]} chunks of {loops.get('swiglu', (0, 0))[0]}"
-              f" rows, attention kernel launches {n_attn}; per-block vs unchunked logits"
-              f" max_abs_err {err:.3e}{' (limit 1e-3)' if dt_name == 'float32' else ''}; {card}")
-        # bf16 chunks the attention too (a miss); the f32 plan chunks the MLP alone
-        want_misses = 1 if dt_name == "bfloat16" else 0
-        check(d["kernel_dispatch_hits"] == 1 and d["kernel_dispatch_misses"] == want_misses,
+              f" {PHI3['budget']}: {secs:.2f}s with the block compile, {ms1:.2f} ms replayed;"
+              f" {len(r.plan)} stages; dispatch hits {d['kernel_dispatch_hits']}, misses"
+              f" {d['kernel_dispatch_misses']}; computed_attention launches {n_attn} = {L} layers"
+              f" x {attn[1]} chunks of {attn[0]} rows (hd {c.hd}), chunked_ffn launches {n_ffn} ="
+              f" {L} layers x {swiglu[1]} chunks of {swiglu[0]} rows; layer 0 activation peak"
+              f" unchunked {bpeak0} B (predicted {r.baseline_peak} B), chunked {bpeak1} B"
+              f" (predicted {r.final_peak} B, {bpeak1 / r.final_peak:.4f}x); per-block vs"
+              f" unchunked logits max_abs_err {err:.3e}"
+              f"{' (limit 1e-3)' if dt_name == 'float32' else ''}; {card}")
+        check(d["kernel_dispatch_hits"] == 2 and d["kernel_dispatch_misses"] == 0,
               f"phi3 {dt_name} dispatch: {d['kernel_dispatch_hits']} hits,"
-              f" {d['kernel_dispatch_misses']} misses; want the SwiGLU hit and"
-              f" {want_misses} attention miss")
-        check(set(loops) == {"swiglu"} and n_ffn == L * loops["swiglu"][1] > 0,
-              f"phi3 {dt_name}: chunked_ffn launched {n_ffn} times, loops {loops}")
-        check(n_attn == 0, f"phi3 {dt_name}: an attention kernel launched {n_attn} times at hd 96")
+              f" {d['kernel_dispatch_misses']} misses; want attention and SwiGLU, no miss")
+        check(set(loops) == {"attention", "swiglu"}, f"phi3 {dt_name}: dispatched loops {loops}")
+        check(n_ffn == L * swiglu[1] > 0,
+              f"phi3 {dt_name}: chunked_ffn launched {n_ffn} times, want {L} x {swiglu[1]}")
+        check(n_attn == L * attn[1] > 0 and n_masked == 0,
+              f"phi3 {dt_name}: computed_attention launched {n_attn} times (masked"
+              f" {n_masked}), want {L} x {attn[1]}")
+        check(abs(bpeak1 - r.final_peak) <= 0.05 * r.final_peak,
+              f"phi3 {dt_name}: chunked block peak {bpeak1} B is not within 5% of the"
+              f" predicted {r.final_peak} B")
         if dt_name == "float32":
             check(err <= 1e-3, f"phi3 fp32 per-block logits differ by {err}")
-        out[dt_name] = dict(launches=n_ffn, swiglu_chunk=loops["swiglu"][0],
-                            logits_err=err, seconds=secs)
-        del y0, y1, model, cf
+        out[dt_name] = dict(launches=n_ffn, attention_launches=n_attn, swiglu_chunk=swiglu[0],
+                            attention_chunk=attn[0], attention_chunks=attn[1],
+                            stages=len(r.plan), logits_err=err, seconds=secs, ms=ms1,
+                            pred_block0=r.baseline_peak, pred_block1=r.final_peak,
+                            block_peak0=bpeak0, block_peak1=bpeak1)
+        del model, cf, p0, h0
         M._AC_CACHE.clear()
         torch.cuda.empty_cache()
     return out
@@ -1252,12 +1472,16 @@ SSM_RUN = dict(arch="mamba2-1.3b", seq_len=8192,
                check_layers=4)
 HYBRID_RUN = dict(arch="recurrentgemma-9b", seq_len=8192,
                   # two RG-LRU layers and one local attention
-                  check_layers=3)
+                  check_layers=3,
+                  # the per-block budget: the attention block's plan chunks
+                  # its attention (2 chunks of 4096 rows on meta)
+                  budget=0.1)
 UNIT_ROUNDOFF = 2.0 ** -24       # float32
 # every kernel of each scan (ssd_scan_mma_kernel, ssd_scan_kernel<float>;
 # rglru_scan_kernel<T>, rglru_scan_simple_kernel<T>)
 SSM_KERNELS = {"ssd_scan": ("ssd_scan_",), "cuBLAS products": ("gemm", "nvjet")}
-HYBRID_KERNELS = {"rglru_scan": ("rglru_scan_",), "cuBLAS products": ("gemm", "nvjet")}
+HYBRID_KERNELS = {"rglru_scan": ("rglru_scan_",), "computed_attention": ("chunk_attention",),
+                  "cuBLAS products": ("gemm", "nvjet")}
 
 
 def scan_tol(dt_name, terms, want):
@@ -1575,6 +1799,167 @@ def run_hybrid_forward(torch, RS, M, card):
     return dict(launches=n, ms=ms, peak=peak, device_ms=trace)
 
 
+def run_hybrid_budget(torch, CA, RS, stats, M, card):
+    """recurrentgemma-9b at full width and depth (38 layers, bf16, S 8192)
+    under HYBRID_RUN's budget: one plan for the local attention block
+    (``hyb_attn``, its attention on ``computed_attention`` at hd 256) and
+    one for the RG-LRU block (``hyb_rg``, its scan one ``rglru_scan`` op
+    node), each compiled at the first layer of its kind; each plan's
+    predicted and measured peaks on that layer; the whole forward
+    unbudgeted and per block with the launch counts zeroed just before and
+    read just after; the device time split."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.graph import op_name
+    from repro_torch.core.lowering import is_chunk_loop
+
+    cfg = get_config(HYBRID_RUN["arch"])
+    cfg_ac = cfg.with_(autochunk_budget=HYBRID_RUN["budget"])
+    S, L = HYBRID_RUN["seq_len"], cfg.n_layers
+    kinds = {"hyb_attn": [i for i in range(L) if cfg.is_attention_layer(i)],
+             "hyb_rg": [i for i in range(L) if not cfg.is_attention_layer(i)]}
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(9), device="cuda")
+    batch = {"tokens": torch.tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (1, S)), device="cuda")}
+
+    def unchunked():
+        return M.forward(cfg, model, batch)[0]
+
+    def per_block():
+        return M.forward(cfg_ac, model, batch)[0]
+
+    M._AC_CACHE.clear()
+    before = stats.snapshot()
+    t0 = time.perf_counter()
+    y = per_block()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    d = stats.delta(before)
+    del y
+    cfs = {key[2]: cf for key, cf in M._AC_CACHE.items()}
+    check(set(cfs) == set(kinds), f"per-block plans {sorted(cfs)}, want {sorted(kinds)}")
+    print(f"[block] recurrentgemma-9b L={L} d={cfg.d_model} H={cfg.n_heads} Kv={cfg.n_kv_heads}"
+          f" hd={cfg.hd} window={cfg.local_window} {cfg.dtype} S={S} budget"
+          f" {HYBRID_RUN['budget']}: first per-block forward {first_s:.2f}s with both block"
+          f" compiles ({d['search_passes']} search passes); dispatch hits"
+          f" {d['kernel_dispatch_hits']} (computed mask {d['kernel_dispatch_computed_mask']}),"
+          f" misses {d['kernel_dispatch_misses']}; {card}")
+    h0 = M.embed_inputs(cfg, model, batch)[0]
+    blocks = {"hyb_attn": lambda p, x: M.dense_block_full(cfg, p, x, window=cfg.local_window),
+              "hyb_rg": lambda p, x: M.rg_block_full(cfg, p, x)}
+    out = {}
+    for tag, layers in kinds.items():
+        cf, r = cfs[tag], cfs[tag].autochunk_result
+        check(cf.counters["compiles"] == 1 and cf.counters["shape_hits"] == len(layers) - 1,
+              f"{tag}: {cf.stats()}, want 1 compile and {len(layers) - 1} replays")
+        p0 = M._index_tree(model["blocks"][layers[0]])
+        before = stats.snapshot()
+        planned = cf.trace(p0, h0).search()
+        check(stats.delta(before)["search_passes"] == 0, f"{tag}: the replay searched")
+        loops = [(n.params["c"], n.params["n_iters"], [k.kind for k in n.params["dispatches"]])
+                 for n in planned.graph.nodes if is_chunk_loop(n)]
+        n_scan = sum(op_name(n) == "rglru_scan" for n in planned.graph.nodes)
+        del planned
+        with torch.no_grad():
+            blocks[tag](p0, h0)
+            _, bpeak0, bms0 = measure_forward(torch, blocks[tag], (p0, h0))
+            _, bpeak1, bms1 = measure_forward(torch, cf, (p0, h0))
+        print(f"[block] {tag}: one compile (host seconds trace {r.trace_s:.2f}, search"
+              f" {r.search_s:.2f}, compile {r.elapsed_s - r.trace_s - r.search_s:.2f}),"
+              f" {cf.counters['shape_hits']} replays over layers {layers[0]}..{layers[-1]};"
+              f" {len(r.plan)} stages, loops (rows, chunks, dispatched) {loops}; rglru_scan op"
+              f" nodes {n_scan}; layer {layers[0]} activation peak unchunked {bpeak0} B"
+              f" (predicted {r.baseline_peak} B, {bpeak0 / r.baseline_peak:.4f}x), chunked"
+              f" {bpeak1} B (predicted {r.final_peak} B, budget {r.budget_bytes} B,"
+              f" {bpeak1 / r.final_peak:.4f}x); time unchunked {bms0:.2f} ms, chunked"
+              f" {bms1:.2f} ms; {card}")
+        for line in r.report().splitlines()[6:]:
+            print(f"[block] {tag} {line.strip()}")
+        check(abs(bpeak1 - r.final_peak) <= 0.05 * r.final_peak,
+              f"{tag}: chunked block peak {bpeak1} B is not within 5% of the predicted"
+              f" {r.final_peak} B")
+        check(n_scan == (1 if tag == "hyb_rg" else 0), f"{tag}: {n_scan} rglru_scan nodes")
+        out[tag] = dict(stages=len(r.plan), loops=loops, pred_block0=r.baseline_peak,
+                        pred_block1=r.final_peak, budget_bytes=r.budget_bytes,
+                        block_peak0=bpeak0, block_peak1=bpeak1, block_ms0=bms0,
+                        block_ms1=bms1, trace_s=r.trace_s, search_s=r.search_s)
+    attn_loops = [lp for lp in out["hyb_attn"]["loops"] if "attention" in lp[2]]
+    check(len(attn_loops) == 1, f"hyb_attn: attention loops {out['hyb_attn']['loops']}")
+    rows, chunks = attn_loops[0][:2]
+
+    unchunked()
+    y0, peak0, ms0 = measure_forward(torch, unchunked, ())
+    before = stats.snapshot()
+    CA.computed_attention.launches = CA.masked_attention.launches = RS.rglru_scan.launches = 0
+    y1, peak1, ms1 = measure_forward(torch, per_block, ())
+    n_attn, n_scan = CA.computed_attention.launches, RS.rglru_scan.launches
+    d = stats.delta(before)
+    n_att_layers, n_rg = len(kinds["hyb_attn"]), len(kinds["hyb_rg"])
+    check(d["search_passes"] == 0, f"second per-block forward: {d['search_passes']} searches")
+    check(n_attn == n_att_layers * chunks > 0 and CA.masked_attention.launches == 0,
+          f"computed_attention launched {n_attn} times, want {n_att_layers} x {chunks}")
+    check(n_scan == n_rg, f"rglru_scan launched {n_scan} times, want {n_rg}")
+    check(bool(torch.isfinite(y1[..., :cfg.vocab_size]).all()), "non-finite per-block logits")
+    check(peak1 < peak0, f"per-block peak {peak1} B is not below the unbudgeted {peak0} B")
+    err = max_logit_err(y1, y0, cfg.vocab_size)
+    print(f"[forward] recurrentgemma-9b per block: whole-forward peak unchunked {peak0} B, per"
+          f" block {peak1} B; time unchunked {ms0:.2f} ms, per block {ms1:.2f} ms;"
+          f" computed_attention launches {n_attn} = {n_att_layers} attention layers x {chunks}"
+          f" chunks of {rows} rows, rglru_scan launches {n_scan} = {n_rg} RG-LRU layers x 1;"
+          f" bf16 logits max |delta| per block vs unchunked {err:.3e}; {card}")
+    del y0, y1
+    trace = device_time_split(torch, per_block, card, "recurrentgemma-9b per-block forward",
+                              HYBRID_KERNELS)
+    del model, h0
+    M._AC_CACHE.clear()
+    return dict(budget=HYBRID_RUN["budget"], blocks=out, attention_launches=n_attn,
+                attention_chunk=rows, attention_chunks=chunks, launches=n_scan, peak0=peak0,
+                peak1=peak1, ms0=ms0, ms1=ms1, bf16_logits_err=err, device_ms=trace)
+
+
+def check_hybrid_budget_logits(torch, M, card):
+    """At full width, HYBRID_RUN's check depth (two RG-LRU layers, one local
+    attention), S 8192: per-block float32 logits within 1e-3 of the
+    unbudgeted ones; then the bf16 logits of the same weights against the
+    unbudgeted float32 ones, per block no further than 1.5 times unbudgeted."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(HYBRID_RUN["arch"]).with_(dtype="float32",
+                                                n_layers=HYBRID_RUN["check_layers"])
+    S, L = HYBRID_RUN["seq_len"], cfg.n_layers
+    batch = {"tokens": torch.tensor(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (1, S)), device="cuda")}
+
+    def logits(c):
+        model = M.init_params(c, torch.Generator(device="cuda").manual_seed(13),
+                              device="cuda")
+        M._AC_CACHE.clear()
+        y0 = M.forward(c, model, batch)[0]
+        y1 = M.forward(c.with_(autochunk_budget=HYBRID_RUN["budget"]), model, batch)[0]
+        M._AC_CACHE.clear()
+        return y0, y1
+
+    y32, y32b = logits(cfg)
+    err = max_logit_err(y32b, y32, cfg.vocab_size)
+    print(f"[forward] recurrentgemma-9b per-block fp32 L={L} S={S} budget {HYBRID_RUN['budget']}:"
+          f" per-block vs unchunked logits max_abs_err {err:.3e} (limit 1e-3); {card}")
+    check(err <= 1e-3, f"recurrentgemma fp32 per-block logits differ by {err}")
+    del y32b
+    y16, y16b = logits(cfg.with_(dtype="bfloat16"))
+    err_u = max_logit_err(y16, y32, cfg.vocab_size)
+    err_b = max_logit_err(y16b, y32, cfg.vocab_size)
+    print(f"[forward] recurrentgemma-9b bf16 L={L} S={S} against the float32 logits of the same"
+          f" weights: unchunked max_abs_err {err_u:.3e}, per block {err_b:.3e}"
+          f" ({err_b / err_u:.3f}x; limit 1.5x); {card}")
+    check(err_b <= 1.5 * err_u, f"recurrentgemma bf16 per-block logits stray {err_b} from"
+          f" float32, the unchunked ones {err_u}")
+    del y32, y16, y16b
+    return dict(fp32_logits_err=err, bf16_vs_fp32_unchunked=err_u, bf16_vs_fp32_per_block=err_b)
+
+
 def time_scans(torch, SS, RS, flush, card):
     """Each scan at its model's shape, CUDA-event medians with L2 flushed,
     beside its bound and its plain version (no one PyTorch call computes
@@ -1688,6 +2073,9 @@ def main() -> int:
         "gpt_mixed": dict(mixed, H=12, Kv=12, hd=64),
         "gqa_decode": dict(decode, H=32, Kv=8, hd=128),
         "gqa_mixed": dict(mixed, H=32, Kv=8, hd=128),
+        # phi3-mini-3.8b's heads (hd 96) at the same serving steps
+        "phi3_serve_decode": dict(serve_decode, H=32, Kv=32, hd=96),
+        "phi3_mixed": dict(mixed, H=32, Kv=32, hd=96),
     }
     max_err, cases = check_paged_kernel(torch, PA, {**shapes, **PAGED_EDGE_SHAPES}, ps, L_max)
 
@@ -1704,28 +2092,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
                     max_new_tokens=SERVE["max_new"]) for i, n in enumerate(lens)]
-    before = stats.snapshot()
-    torch.cuda.synchronize()
-    PA.paged_attention_blocked.launches = 0
-    t0 = time.perf_counter()
-    for r in reqs:
-        engine.submit(r)
-    engine.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = PA.paged_attention_blocked.launches
-    d = stats.delta(before)
-    steps = engine.sched_stats["steps"]
-    toks = sum(len(r.generated) for r in reqs)
-    check(all(r.done and len(r.generated) == SERVE["max_new"] for r in reqs),
-          "not every request finished with max_new tokens")
-    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
-          "a generated token lies outside the vocabulary")
-    check(d["mixed_steps"] > 0, "no mixed prefill+decode step")
-    check(d["pages_allocated"] == d["pages_freed"] > 0,
-          f"pages allocated {d['pages_allocated']} != freed {d['pages_freed']}")
-    check(launches == cfg.n_layers * steps > 0,
-          f"paged_attention launched {launches} times in {steps} steps")
+    wall, launches, d, steps, toks = serve_timed(torch, PA, stats, engine, cfg, reqs)
     ttft = [r.ttft_s for r in reqs]
     print(f"[serve] gpt-paper bf16 full width: {len(reqs)} requests (prompts"
           f" {lens[0]}..{lens[-1]}), {toks} tokens in {wall:.3f}s = {toks / wall:.1f} tok/s,"
@@ -1769,60 +2136,25 @@ def main() -> int:
             print(f"[trace]   {us / 1e3:10.3f} ms  {n[:100]}")
 
     # ---- 4c. the same requests with the plain version swapped in ---------
-    # (this script's comparison; the engine has no switch): which served
-    # tokens the kernel's rounding changed, if any
-    from repro_torch.serving import engine as serving_engine
-    plain_reqs = [Request(rid=200 + r.rid, prompt=r.prompt, max_new_tokens=SERVE["max_new"])
-                  for r in reqs]
-    serving_engine.paged_attention_blocked = PA.paged_attention_blocked_plain
-    try:
-        for r in plain_reqs:
-            engine.submit(r)
-        engine.run()
-    finally:
-        serving_engine.paged_attention_blocked = PA.paged_attention_blocked
-    same = sum(a == b for r, rp in zip(reqs, plain_reqs) for a, b in zip(r.generated, rp.generated))
+    # which served tokens the kernel's rounding changed, if any
+    plain_reqs, same = serve_plain_swapped(PA, engine, reqs)
     print(f"[serve] the same requests with the plain version swapped in: served tokens sha256"
           f" {token_digest(plain_reqs)}; {same} of {toks} tokens equal to the kernel's")
     del engine, params
 
-    # ---- 4d. a head dim the paged kernel has no instance for ------------
-    # phi3-mini-3.8b's hd 96 (ROADMAP B2): the engine refuses at construction
-    # on the card, before it allocates anything, not at its first step
-    pcfg = get_config("phi3-mini-3.8b")
-    check(PA.cuda_refusal(pcfg.hd) is not None and PA.cuda_refusal(cfg.hd) is None,
-          "cuda_refusal does not tell hd 96 from gpt-paper's hd 64")
-    try:
-        PagedServeEngine(pcfg, None, max_seqs=2, max_len=1024, page_size=ps, device="cuda")
-    except NotImplementedError as e:
-        print(f"[serve] phi3-mini-3.8b (hd {pcfg.hd}) on the card: the engine refuses at"
-              f" construction: {e}")
-    else:
-        fail("PagedServeEngine was built for phi3-mini-3.8b's hd 96 on the card")
+    # ---- 4d. phi3-mini-3.8b served at full width: its hd 96 on the kernel -
+    # (counts zeroed just before, read just after); hd 48 still refused
+    torch.cuda.empty_cache()
+    phi3_serve = serve_phi3(torch, PA, stats, M, lens, card)
 
     # ---- 5. served logits against the dense forward, fp32 ----------------
-    cfg32 = cfg.with_(dtype="float32")
-    params32 = M.init_params(cfg32, torch.Generator(device="cuda").manual_seed(1),
-                             device="cuda")
-    engine = PagedServeEngine(cfg32, params32, max_seqs=2, max_len=1024, page_size=ps,
-                              prefill_chunk="auto", autochunk_budget=SERVE["budget"],
-                              device="cuda")
-    captured = []
-    run_ragged = engine.run_ragged
-    engine.run_ragged = lambda *a: captured.append(run_ragged(*a)) or captured[-1]
+    # gpt-paper at full depth, phi3-mini at 4 layers
     prompt = rng.integers(0, cfg.vocab_size, 600).tolist()
-    engine.submit(Request(rid=0, prompt=prompt, max_new_tokens=1))
-    engine.run()
-    served = captured[-1][0]
-    dense = M.forward(cfg32, params32, {"tokens": torch.tensor([prompt], device="cuda")})[0]
-    dense = dense[0, -1]
-    err = float((served - dense).abs().max())
-    check(served.shape == dense.shape == (cfg.vocab_padded,), "logit shapes differ")
-    check(bool(torch.isfinite(served[:cfg.vocab_size]).all()), "non-finite served logits")
-    print(f"[logits] fp32 prompt of 600 in {len(captured)} chunks of {engine.prefill_chunk}:"
-          f" served vs dense forward max_abs_err {err:.3e} (limit 1e-3)")
-    check(err <= 1e-3, f"served logits differ from the dense forward by {err}")
-    del engine, params32, captured, served, dense
+    check_served_logits(torch, M, cfg.with_(dtype="float32"), 1, prompt)
+    pcfg = get_config("phi3-mini-3.8b")
+    phi3_serve["fp32_logits_err"] = check_served_logits(
+        torch, M, pcfg.with_(dtype="float32", n_layers=4), 4,
+        rng.integers(0, pcfg.vocab_size, 600).tolist(), label=f"phi3-mini-3.8b L=4 hd={pcfg.hd} ")
 
     # ---- 6. estimator on the card (informational) ------------------------
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -1846,7 +2178,8 @@ def main() -> int:
     # ---- 7. times at the serving shapes ----------------------------------
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     timed = time_paged_kernel(torch, F, PA, {k: shapes[k] for k in
-                                             ("gpt_decode", "gpt_serve_decode", "gpt_mixed")},
+                                             ("gpt_decode", "gpt_serve_decode", "gpt_mixed",
+                                              "phi3_serve_decode", "phi3_mixed")},
                               cases, flush, card)
 
     # ---- 8. the compiler path: autochunk on gpt-paper at full width ------
@@ -1873,10 +2206,10 @@ def main() -> int:
     # ---- 9. the chunked-attention kernels against their plain versions --
     c_chunk, ext = fwd["auto"]["chunk"], COMPILE["seq_len"]
     attn_err = check_attention_kernels(torch, CA, gpt_attention_cases(c_chunk, ext)
-                                       + ATTENTION_EDGE_CASES)
+                                       + ATTENTION_EDGE_CASES + ATTENTION_HD_CASES)
 
     # ---- 10. their times at the compiled forward's chunk shape ----------
-    attn_timed = time_attention_kernels(torch, F, CA, c_chunk, ext, flush, card)
+    attn_timed = time_attention_kernels(torch, F, CA, c_chunk, ext, flush, card, attn_err)
 
     # ---- 11. per-block AutoChunk in minitron-4b's forward ----------------
     # counts zeroed just before the per-block forward and read just after;
@@ -1892,7 +2225,7 @@ def main() -> int:
     # ---- 12. computed_attention's time at the block's last chunk ---------
     ac = block["attention_check"]
     block_attn_timed = time_attention_kernels(
-        torch, F, CA, ac["Sq"], ac["Skv"], flush, card, N=ac["N"], group=ac["group"],
+        torch, F, CA, ac["Sq"], ac["Skv"], flush, card, attn_err, N=ac["N"], group=ac["group"],
         hd=ac["hd"], names=("computed_attention",))["computed_attention"]
 
     # ---- 13. chunked_ffn against its plain version, then its time --------
@@ -1901,7 +2234,7 @@ def main() -> int:
     ffn_timed = time_ffn_kernel(torch, F, CF, mcfg, block["chunk"], flush, card)
     del mcfg
 
-    # ---- 13b. phi3-mini-3.8b per block: hd 96 keeps its loop, the MLP not --
+    # ---- 13b. phi3-mini-3.8b per block: attention (hd 96) and MLP kernels --
     phi3 = run_phi3_forward(torch, CA, CF, stats, M, card)
 
     # ---- 14. the scan kernels against their plain versions ---------------
@@ -1951,8 +2284,31 @@ def main() -> int:
                                           HYBRID_RUN["check_layers"], 11, card, bf16=False))
     torch.cuda.empty_cache()
 
+    # ---- 16b. recurrentgemma-9b under a budget: both block kinds compiled --
+    # counts zeroed just before the per-block forward and read just after;
+    # then the float32 and bf16 checks at 3 layers
+    hyb_budget = run_hybrid_budget(torch, CA, RS, stats, M, card)
+    torch.cuda.empty_cache()
+    hyb_budget.update(check_hybrid_budget_logits(torch, M, card))
+    torch.cuda.empty_cache()
+
     # ---- 17. the scans' times at their models' shapes ---------------------
     scan_timed = time_scans(torch, SS, RS, flush, card)
+
+    # ---- 17b. the attention kernels at the new head dims' model shapes ---
+    # phi3-mini's per-block chunk (hd 96), recurrentgemma's (hd 256, MQA in
+    # its window), hubert-xlarge's encoder attention (hd 80, not causal)
+    hd_timed = {
+        "phi3_hd96": time_attention_kernels(
+            torch, F, CA, phi3["bfloat16"]["attention_chunk"], PHI3["seq_len"], flush, card,
+            attn_err, N=32, hd=96),
+        "recurrentgemma_hd256": time_attention_kernels(
+            torch, F, CA, hyb_budget["attention_chunk"], HYBRID_RUN["seq_len"], flush, card,
+            attn_err, N=hcfg.n_kv_heads, group=hcfg.n_heads // hcfg.n_kv_heads, hd=hcfg.hd,
+            window=hcfg.local_window),
+        "hubert_hd80": time_attention_kernels(torch, F, CA, 1024, 8192, flush, card, attn_err,
+                                              N=16, hd=80, causal=False),
+    }
 
     # ---- 18. kernels lines and the result --------------------------------
     launch_counts = {"paged_attention": launches,
@@ -2002,8 +2358,13 @@ def main() -> int:
             "shape": {k: t[k] for k in ("sq", "skv", "q_offset", "bytes", "operations")},
             "forward": dict(fwd[mode], fp32_logits_err=fp32_err[mode]),
         })
+    entries[0]["phi3_serve"] = phi3_serve
     entries[1]["cache"] = cache_run
     entries[1]["block_shape"] = block_attn_timed
+    entries[1]["hybrid_budget_forward"] = hyb_budget
+    entries[1]["phi3_forward"] = phi3
+    for i, kname in ((1, "computed_attention"), (2, "masked_attention")):
+        entries[i]["head_dim_shapes"] = {k: t[kname] for k, t in hd_timed.items()}
     entries[1]["tensor_core_instructions"] = routes["chunked_attention"]
     entries[2]["tensor_core_instructions"] = routes["chunked_attention"]
     # computed_attention also carries the per-block path: its launches there

@@ -45,7 +45,7 @@ BLOCK_Q = 64     # query rows per thread block of the CUDA kernel
 BLOCK_KV = 64    # keys per staged tile of the CUDA kernel
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 
 
 # ---------------------------------------------------------------------------

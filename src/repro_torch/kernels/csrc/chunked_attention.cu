@@ -23,17 +23,18 @@
 // Routing (in dispatch() below, by dtype; not a fallback):
 //   * bf16, both entry points -> chunk_attention_wgmma_kernel<hd, masked>:
 //     both products on the tensor cores (wgmma), K/V tiles in a two-stage
-//     cp.async ring, P kept in registers.  hd 32, 64, 128; anything else is
-//     refused (chunked_attention.py cuda_refusal, which kernel dispatch
-//     also asks).  A mask is first classified by tiles (below).
+//     cp.async ring, P kept in registers.  hd 32, 64, 80, 96, 128, 256;
+//     anything else is refused (chunked_attention.py cuda_refusal, which
+//     kernel dispatch also asks).  A mask is first classified by tiles
+//     (below).
 //   * f32, both entry points -> chunk_attention_kernel: CUDA-core f32 FMAs.
 //     f32 stays off the TF32 tensor cores because TF32 keeps about three
 //     decimal digits, short of the 1e-4 that the f32 checks hold the kernel
 //     to.  The f32 masked kernel reads the mask beside K and V and visits
-//     every tile.
+//     every tile.  The same head dims.
 //
 // Shared by both kernels (the plain version's band_tiles() assumes them):
-// * One 128-thread block per (64-query tile, flat head n); the kv walk is a
+// * One block per (64-query tile, flat head n); the kv walk is a
 //   loop inside the block, in tiles of 64 keys (kBQ, kBKV).
 // * GQA is native: head n reads kv head n / group; K and V are never repeated.
 // * computed: the band bounds the loop.  It runs from the first kv tile the
@@ -51,21 +52,38 @@
 // float4); each thread owns 4 query rows and computes a 4 x 8 block of logits,
 // the row max and sum are reduced over the 8 lanes that share a row with xor
 // shuffles, P goes through shared memory, and each thread accumulates its
-// 4 x hd/8 block of P @ V.
+// 4 x hd/8 block of P @ V, read from V as float4 (hd a multiple of 32) or
+// float2 (hd 80).  128 threads.  Shared memory is (2 (64 + 4) + 64) hd +
+// 64 (64 + 4) f32: 222,208 B at hd 256, one block an SM under the 232,448 B
+// a block may use.
 //
 // chunk_attention_wgmma_kernel (tensor cores, bf16):
-// * The block is one warpgroup; 64 query rows are exactly wgmma's M.
+// * The block is one warpgroup (two at hd 256); 64 query rows are exactly
+//   wgmma's M.
 // * Q, K and V tiles stay bf16 in shared memory in the layout wgmma's
-//   descriptors read: rows of min(2*hd, 128) bytes, 16-byte chunks XOR-
-//   swizzled by the row (128B swizzle; 64B at hd 32), column blocks of 64
-//   rows.  The same layout serves K as the K-major B of S = Q K^T and V as
-//   the MN-major (transposed) B of O = P V.
+//   descriptors read: rows of the widest swizzle atom (128, 64 or 32 bytes)
+//   that divides a row of 2*hd bytes, 16-byte chunks XOR-swizzled by the
+//   row, column blocks of 64 rows.  The same layout serves K as the K-major
+//   B of S = Q K^T and V as the MN-major (transposed) B of O = P V.
+//   hd 80 (160-byte rows) takes five 32-byte column blocks and hd 96 three
+//   64-byte ones, so every tile holds exactly its hd columns: no pad
+//   columns are copied, stored or multiplied (a tile padded to 128 columns
+//   would cost 60% / 33% more shared memory, copies and P V products).  The
+//   narrower swizzle atoms may cost wgmma shared-memory bank conflicts that
+//   the 128-byte one avoids; they are not measured apart, and the times in
+//   PERF.md include them.
 // * S = Q K^T: hd/16 wgmma m64n64k16 with both operands in shared memory.
 //   The f32 S accumulator (32 values a thread: rows g and g+8 of its warp's
 //   16, two columns of each 8) is masked, scaled and exponentiated in
 //   registers and packed to bf16: that accumulator layout is the register-A
 //   layout of the next product, so P never touches shared memory.
 // * O += P V: wgmma m64n{hd}k16 with A (P) in registers and V transposed.
+//   At hd 256 the accumulator would be 128 f32 a thread beside S and P, more
+//   than a thread's 255 registers hold, so the block has two warpgroups:
+//   each computes the same S = Q K^T (the Q K^T products are done twice,
+//   a third more tensor-core work at hd 256) and its own half of O, 128
+//   columns, with m64n128k16.  Keeping S apart costs no shared memory and
+//   no barrier beyond those of the K/V ring.
 //   P goes in as two bf16 operands, hi = bf16(p) and lo = bf16(p - hi), so
 //   the weights carry about 2^-17 of rounding where bf16 alone carries 2^-9:
 //   a row with few live keys would otherwise stray by a unit in the last
@@ -78,7 +96,8 @@
 // * K and V tiles come in through two-stage cp.async rings (16-byte copies,
 //   zero-filled past Skv), K one tile ahead of V: the copies of K(t+1) and
 //   V(t) are in flight while iteration t computes.  Shared memory is 5 tiles
-//   (Q, 2 x K, 2 x V): 80 KB at hd 128, so two blocks fit on an SM.
+//   (Q, 2 x K, 2 x V) plus 1 KB of alignment slack: 82,944 B at hd 128, so
+//   two blocks fit on an SM; 164,864 B at hd 256, one block.
 // * Query tiles are issued from the last to the first: under a causal band
 //   the last tiles see the most keys, so the long blocks start first.
 //
@@ -124,6 +143,20 @@ __host__ __device__ constexpr int smem_floats(int hd) {
   return hd * (kBQ + kPad) + hd * (kBKV + kPad) + kBKV * hd + kBKV * (kBQ + kPad);
 }
 
+// a vector of 4 or 2 floats from shared memory, as one float4 or float2
+__device__ __forceinline__ void load_vec(const float* p, float (&w)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  w[0] = t.x;
+  w[1] = t.y;
+  w[2] = t.z;
+  w[3] = t.w;
+}
+__device__ __forceinline__ void load_vec(const float* p, float (&w)[2]) {
+  const float2 t = *reinterpret_cast<const float2*>(p);
+  w[0] = t.x;
+  w[1] = t.y;
+}
+
 // floor(a / b) for b > 0 and any sign of a
 __device__ __forceinline__ long long floor_div(long long a, long long b) {
   return a >= 0 ? a / b : -((-a + b - 1) / b);
@@ -141,7 +174,10 @@ chunk_attention_kernel(const float* __restrict__ q,         // (N*group, Sq, HD)
   constexpr int kQP = kBQ + kPad;
   constexpr int kKP = kBKV + kPad;
   constexpr int kAccCols = HD / 8;   // accumulator columns per thread
-  static_assert(HD % 32 == 0, "hd must be a multiple of 32");
+  // V and the output in vectors of kVec floats: thread tx owns columns
+  // 8 kVec cv + kVec tx + u of each of the kAccCols / kVec column groups cv
+  constexpr int kVec = HD % 32 == 0 ? 4 : 2;
+  static_assert(HD % 16 == 0, "hd must be a multiple of 16");
 
   extern __shared__ __align__(16) float smem[];
   float* qT = smem;                    // [HD][kQP]   q tile, transposed
@@ -282,20 +318,20 @@ chunk_attention_kernel(const float* __restrict__ q,         // (N*group, Sq, HD)
     }
     __syncthreads();
 
-    // acc[rows ty*4+i][cols 4*tx + 32*c4 + u] += P @ V
+    // acc[rows ty*4+i][cols kVec*tx + 8*kVec*cv + u] += P @ V
 #pragma unroll 4
     for (int c = 0; c < kBKV; ++c) {
       const float4 p = *reinterpret_cast<const float4*>(&pT[c * kQP + ty * kRows]);
       const float pv[4] = {p.x, p.y, p.z, p.w};
 #pragma unroll
-      for (int c4 = 0; c4 < HD / 32; ++c4) {
-        const float4 w = *reinterpret_cast<const float4*>(&vS[c * HD + 32 * c4 + 4 * tx]);
-        const float wv[4] = {w.x, w.y, w.z, w.w};
+      for (int cv = 0; cv < kAccCols / kVec; ++cv) {
+        float wv[kVec];
+        load_vec(&vS[c * HD + 8 * kVec * cv + kVec * tx], wv);
 #pragma unroll
         for (int i = 0; i < kRows; ++i)
 #pragma unroll
-          for (int u = 0; u < 4; ++u)
-            acc[i][4 * c4 + u] = fmaf(pv[i], wv[u], acc[i][4 * c4 + u]);
+          for (int u = 0; u < kVec; ++u)
+            acc[i][kVec * cv + u] = fmaf(pv[i], wv[u], acc[i][kVec * cv + u]);
       }
     }
   }
@@ -307,10 +343,10 @@ chunk_attention_kernel(const float* __restrict__ q,         // (N*group, Sq, HD)
     if (row >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c4 = 0; c4 < HD / 32; ++c4)
+    for (int cv = 0; cv < kAccCols / kVec; ++cv)
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        on[(size_t)row * HD + 32 * c4 + 4 * tx + u] = acc[i][4 * c4 + u] * inv;
+      for (int u = 0; u < kVec; ++u)
+        on[(size_t)row * HD + 8 * kVec * cv + kVec * tx + u] = acc[i][kVec * cv + u] * inv;
   }
 }
 
@@ -434,21 +470,63 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// D(64 x 80) (+)= A(64 x 16, registers) * B(16 x 80, MN-major in smem)
+__device__ __forceinline__ void wgmma_rs_m64n80(float (&d)[40], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// D(64 x 96) (+)= A(64 x 16, registers) * B(16 x 96, MN-major in smem)
+__device__ __forceinline__ void wgmma_rs_m64n96(float (&d)[48], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
 
 // A tile of 64 rows x HD bf16 in shared memory, laid out for wgmma: rows of
-// kRowBytes = min(2 HD, 128) bytes (one swizzle atom wide), 8-row groups
-// kRowBytes * 8 apart, 2 HD / kRowBytes column blocks of 64 rows each, and
-// the 16-byte chunk c of row r stored at chunk c ^ (address bits 7..9) --
-// CUDA's 128-byte swizzle (64-byte at hd 32).  Tiles start 1024-byte aligned,
-// so the swizzle of an offset is the swizzle of its address.
+// kRowBytes bytes (one swizzle atom wide: the widest of 128, 64 and 32 that
+// divides 2 HD), 8-row groups kRowBytes * 8 apart, 2 HD / kRowBytes column
+// blocks of 64 rows each, and the 16-byte chunk c of row r stored at chunk
+// c ^ (address bits 7..) -- CUDA's 128-, 64- or 32-byte swizzle.  Tiles and
+// column blocks start 1024-byte aligned, so the swizzle of an offset is the
+// swizzle of its address.
+//   hd:          32   64   80   96  128  256
+//   kRowBytes:   64  128   32   64  128  128
+//   blocks:       1    1    5    3    2    4
 template <int HD>
 struct Tile {
-  static constexpr int kRowBytes = 2 * HD < 128 ? 2 * HD : 128;
+  static constexpr int kRowBytes = (2 * HD) % 128 == 0 ? 128 : (2 * HD) % 64 == 0 ? 64 : 32;
   static constexpr int kBlockBytes = 64 * kRowBytes;         // one column block
   static constexpr int kBytes = 64 * HD * 2;
-  static constexpr uint32_t kSwizzle = kRowBytes / 16 - 1;   // 7 (128B) or 3 (64B)
-  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // descriptor: B128, B64
-  static_assert(kRowBytes == 128 || kRowBytes == 64, "hd must be 32, 64 or 128");
+  static constexpr uint32_t kSwizzle = kRowBytes / 16 - 1;   // 7, 3 or 1
+  // descriptor layout type: B128 1, B64 2, B32 3
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  static_assert(HD % 16 == 0, "hd must be a multiple of 16");
+  static_assert(kBlockBytes % 1024 == 0 && kBytes % 1024 == 0, "1024-byte aligned blocks");
 
   // byte offset of chunk ch (bf16 elements 8 ch .. 8 ch + 7) of row r
   __device__ static uint32_t offset(int r, int ch) {
@@ -469,18 +547,23 @@ struct Tile {
     return desc(base + (kk * 32 / kRowBytes) * kBlockBytes + (kk * 32) % kRowBytes, 16,
                 8 * kRowBytes);
   }
-  // the tile as an MN-major operand (rows = K, hd = N), k-step kk of 16 rows;
-  // the next 64 hd values are one column block further on
-  __device__ static uint64_t mn_major(uint32_t base, int kk) {
-    return desc(base + kk * 16 * kRowBytes, kBlockBytes, 8 * kRowBytes);
+  // the tile as an MN-major operand (rows = K, hd = N), k-step kk of 16 rows,
+  // from hd column col (a column block's first); the next kRowBytes / 2 hd
+  // values are one column block further on
+  __device__ static uint64_t mn_major(uint32_t base, int kk, int col = 0) {
+    return desc(base + (col * 2 / kRowBytes) * kBlockBytes + kk * 16 * kRowBytes, kBlockBytes,
+                8 * kRowBytes);
   }
 
-  // rows [0, 64) of a row-major (rows, HD) source, rows >= valid as zeros
+  // rows [0, 64) of a row-major (rows, HD) source, rows >= valid as zeros,
+  // by NT threads
+  template <int NT>
   __device__ static void load(uint32_t dst, const __nv_bfloat16* src, int valid, int tid) {
     constexpr int kChunks = HD / 8;   // 16-byte chunks a row
+    static_assert(64 * kChunks % NT == 0, "whole copies a thread");
 #pragma unroll
-    for (int i = 0; i < 64 * kChunks / kThreads; ++i) {
-      const int e = tid + i * kThreads;
+    for (int i = 0; i < 64 * kChunks / NT; ++i) {
+      const int e = tid + i * NT;
       const int r = e / kChunks, ch = e % kChunks;
       const bool in = r < valid;
       cp_async_16(dst + offset(r, ch), src + (size_t)(in ? r : 0) * HD + ch * 8, in ? 16 : 0);
@@ -488,17 +571,32 @@ struct Tile {
   }
 };
 
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4],
+// O(64 x N) += P V, N output columns
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&o)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_v) {
-  if constexpr (HD == 32) {
+  if constexpr (N == 32) {
     wgmma_rs_m64n32(o, a, desc_v, 1);
-  } else if constexpr (HD == 64) {
+  } else if constexpr (N == 64) {
     wgmma_rs_m64n64(o, a, desc_v, 1);
+  } else if constexpr (N == 80) {
+    wgmma_rs_m64n80(o, a, desc_v, 1);
+  } else if constexpr (N == 96) {
+    wgmma_rs_m64n96(o, a, desc_v, 1);
   } else {
+    static_assert(N == 128, "P V width");
     wgmma_rs_m64n128(o, a, desc_v, 1);
   }
 }
+
+// The bf16 kernel's shape at head dim HD: warpgroups a block, each owning
+// kN = HD / kWG output columns.
+template <int HD>
+struct WgmmaShape {
+  static constexpr int kWG = HD > 128 ? 2 : 1;
+  static constexpr int kN = HD / kWG;
+  static constexpr int kThreads = 128 * kWG;
+};
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 b) {
   return *reinterpret_cast<const uint32_t*>(&b);
@@ -594,23 +692,28 @@ mask_list_kernel(const uint8_t* __restrict__ cls, const uint8_t* __restrict__ ro
 }
 
 template <int HD, bool MASKED>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(WgmmaShape<HD>::kThreads)
 chunk_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,   // (N*group, Sq, HD)
                              const __nv_bfloat16* __restrict__ k,   // (N, Skv, HD)
                              const __nv_bfloat16* __restrict__ v,   // (N, Skv, HD)
                              __nv_bfloat16* __restrict__ out,       // (N*group, Sq, HD)
                              int group, int Sq, int Skv, int q_offset, int causal, int window,
                              float scale_log2, MaskTiles mt) {
-  static_assert(kBQ == 64 && kBKV == 64 && kThreads == 128,
-                "one warpgroup, one wgmma M of query rows, 64-key tiles");
+  static_assert(kBQ == 64 && kBKV == 64, "one wgmma M of query rows, 64-key tiles");
   using Tl = Tile<HD>;
+  constexpr int NT = WgmmaShape<HD>::kThreads;
+  constexpr int kN = WgmmaShape<HD>::kN;        // this warpgroup's output columns
   extern __shared__ uint8_t smem_raw[];
   // Q, K0, V0, K1, V1, from a 1024-byte aligned base
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+  // warpgroup (output columns wg kN ..) and warp in it; constants for one
+  // warpgroup, so its descriptor and address arithmetic folds as before
+  constexpr bool kOneWG = WgmmaShape<HD>::kWG == 1;
+  const int wg = kOneWG ? 0 : tid >> 7;
+  const int warp = kOneWG ? tid >> 5 : (tid >> 5) & 3, lane = tid & 31;
   const int n = blockIdx.y;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int q0 = qt * kBQ;
@@ -647,10 +750,10 @@ chunk_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,   // (N*group,
   // r_lo and r_lo + 8; columns 8 j + c0, 8 j + c0 + 1 of each 8-column chunk j
   const int r_lo = warp * 16 + (lane >> 2);
   const int c0 = 2 * (lane & 3);
-  float o[HD / 2];
+  float o[kN / 2];
   float s[32];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kN / 2; ++i) o[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
   float m[2] = {kNegInf, kNegInf};   // running max of the base-2 logits
@@ -665,8 +768,8 @@ chunk_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,   // (N*group,
   auto v_slot = [&](int i) { return base + (3 + (i & 1)) * Tl::kBytes; };
   if (n_visit > 0) {
     const int t0 = tile_of(0);
-    Tl::load(sQ, qn + (size_t)q0 * HD, Sq - q0, tid);
-    Tl::load(k_slot(0), kn + (size_t)t0 * kBKV * HD, Skv - t0 * kBKV, tid);
+    Tl::template load<NT>(sQ, qn + (size_t)q0 * HD, Sq - q0, tid);
+    Tl::template load<NT>(k_slot(0), kn + (size_t)t0 * kBKV * HD, Skv - t0 * kBKV, tid);
   }
   cp_async_commit();
 
@@ -676,7 +779,7 @@ chunk_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,   // (N*group,
     const int k0 = tile_of(it) * kBKV;
     if (it + 1 < n_visit) {
       const int k1 = tile_of(it + 1) * kBKV;
-      Tl::load(k_slot(it + 1), kn + (size_t)k1 * HD, Skv - k1, tid);
+      Tl::template load<NT>(k_slot(it + 1), kn + (size_t)k1 * HD, Skv - k1, tid);
     }
     // a partial tile's mask bits of this thread's two rows, read while the
     // products run
@@ -686,7 +789,7 @@ chunk_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,   // (N*group,
       row_bits[0] = tb[r_lo];
       row_bits[1] = tb[r_lo + 8];
     }
-    Tl::load(v_slot(it), vn + (size_t)k0 * HD, Skv - k0, tid);
+    Tl::template load<NT>(v_slot(it), vn + (size_t)k0 * HD, Skv - k0, tid);
     cp_async_commit();
     cp_async_wait<1>();       // Q, K(it) and V(it-1) have landed
     fence_proxy_async();
@@ -702,8 +805,8 @@ chunk_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,   // (N*group,
     if (it > 0) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        wgmma_pv<HD>(o, p_hi[kk], Tl::mn_major(v_slot(it - 1), kk));
-        wgmma_pv<HD>(o, p_lo[kk], Tl::mn_major(v_slot(it - 1), kk));
+        wgmma_pv<kN>(o, p_hi[kk], Tl::mn_major(v_slot(it - 1), kk, wg * kN));
+        wgmma_pv<kN>(o, p_lo[kk], Tl::mn_major(v_slot(it - 1), kk, wg * kN));
       }
       wgmma_commit();
       wgmma_wait<1>();        // S is done; P V may still run
@@ -760,7 +863,7 @@ chunk_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,   // (N*group,
     pin(p_hi);
     pin(p_lo);
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < kN / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -777,8 +880,8 @@ chunk_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,   // (N*group,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      wgmma_pv<HD>(o, p_hi[kk], Tl::mn_major(v_slot(n_visit - 1), kk));
-      wgmma_pv<HD>(o, p_lo[kk], Tl::mn_major(v_slot(n_visit - 1), kk));
+      wgmma_pv<kN>(o, p_hi[kk], Tl::mn_major(v_slot(n_visit - 1), kk, wg * kN));
+      wgmma_pv<kN>(o, p_lo[kk], Tl::mn_major(v_slot(n_visit - 1), kk, wg * kN));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -797,8 +900,8 @@ chunk_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,   // (N*group,
     const int row = q0 + r_lo + 8 * r;
     if (row >= Sq) continue;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(&on[(size_t)row * HD + 8 * j + c0]) =
+    for (int j = 0; j < kN / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(&on[(size_t)row * HD + wg * kN + 8 * j + c0]) =
           __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     }
   }
@@ -818,7 +921,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
     configured = true;
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, n_q_heads);
-  chunk_attention_wgmma_kernel<HD, MASKED><<<grid, kThreads, bytes, stream>>>(
+  chunk_attention_wgmma_kernel<HD, MASKED><<<grid, WgmmaShape<HD>::kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), group, Sq, Skv,
       q_offset, causal, window, scale * 1.4426950408889634f, mt);
@@ -883,19 +986,21 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, const
                       void* out, int n_q_heads, int group, int Sq, int Skv, int q_offset,
                       int causal, int window, int mask_heads, float scale,
                       cudaStream_t stream) {
+#define CHUNK_ATTN_F32(D)                                                                 \
+  case D:                                                                                 \
+    return launch<D, MASKED>(q, k, v, mask, out, n_q_heads, group, Sq, Skv, q_offset,     \
+                             causal, window, mask_heads, scale, stream);
   switch (hd) {
-    case 32:
-      return launch<32, MASKED>(q, k, v, mask, out, n_q_heads, group, Sq, Skv, q_offset,
-                                causal, window, mask_heads, scale, stream);
-    case 64:
-      return launch<64, MASKED>(q, k, v, mask, out, n_q_heads, group, Sq, Skv, q_offset,
-                                causal, window, mask_heads, scale, stream);
-    case 128:
-      return launch<128, MASKED>(q, k, v, mask, out, n_q_heads, group, Sq, Skv, q_offset,
-                                 causal, window, mask_heads, scale, stream);
+    CHUNK_ATTN_F32(32)
+    CHUNK_ATTN_F32(64)
+    CHUNK_ATTN_F32(80)
+    CHUNK_ATTN_F32(96)
+    CHUNK_ATTN_F32(128)
+    CHUNK_ATTN_F32(256)
     default:
       return cudaErrorInvalidValue;
   }
+#undef CHUNK_ATTN_F32
 }
 
 template <bool MASKED>
@@ -921,19 +1026,21 @@ int dispatch(int dtype, int hd, const void* q, const void* k, const void* v, con
     const cudaError_t e = prepare_mask(mask, mask_heads, Sq, Skv, workspace, &mt, st);
     if (e != cudaSuccess) return (int)e;
   }
+#define CHUNK_ATTN_BF16(D)                                                                \
+  case D:                                                                                 \
+    return (int)launch_wgmma<D, MASKED>(q, k, v, out, n_q_heads, group, Sq, Skv, q_offset, \
+                                        causal, window, scale, mt, st);
   switch (hd) {
-    case 32:
-      return (int)launch_wgmma<32, MASKED>(q, k, v, out, n_q_heads, group, Sq, Skv, q_offset,
-                                           causal, window, scale, mt, st);
-    case 64:
-      return (int)launch_wgmma<64, MASKED>(q, k, v, out, n_q_heads, group, Sq, Skv, q_offset,
-                                           causal, window, scale, mt, st);
-    case 128:
-      return (int)launch_wgmma<128, MASKED>(q, k, v, out, n_q_heads, group, Sq, Skv, q_offset,
-                                            causal, window, scale, mt, st);
+    CHUNK_ATTN_BF16(32)
+    CHUNK_ATTN_BF16(64)
+    CHUNK_ATTN_BF16(80)
+    CHUNK_ATTN_BF16(96)
+    CHUNK_ATTN_BF16(128)
+    CHUNK_ATTN_BF16(256)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef CHUNK_ATTN_BF16
 }
 
 }  // namespace

@@ -24,9 +24,17 @@
 // * Inside the block every lane works: a group of LG lanes reads one key's K
 //   and V rows with 16-byte loads (8 bf16 or 4 f32 each, EPL elements a lane),
 //   dots them with the tile's query vectors and finishes each dot with xor
-//   shuffles inside the group.  The 4 warps x 32/LG groups take different
-//   keys, U keys per group per step, all loads of a step issued before the math
-//   and the next step's page ids fetched meanwhile.  Each group keeps its own
+//   shuffles inside the group.  LG is a power of two, so groups tile the warp
+//   and the xor shuffles stay inside a group.  At hd 96 a key's row is 12
+//   (bf16) or 24 (f32) 16-byte words: the group is then 16 or 32 lanes of
+//   which the first 12 or 24 load and the rest hold zeros (a quarter of the
+//   lanes idle).  That keeps every load 16 bytes wide and every reduction a
+//   power-of-two xor; 16 lanes of 6 elements would need 12-byte rows, split
+//   into 8- and 4-byte loads.  An idle lane never reads: a head's K and V are
+//   adjacent in the page, so a load past its 96 values would read V's.  The
+//   4 warps x 32/LG groups take different keys, U keys per group per step,
+//   all loads of a step issued before the math and the next step's page ids
+//   fetched meanwhile.  Each group keeps its own
 //   online softmax state (m, l, acc slice) in registers; at the end the groups
 //   are merged with xor shuffles and the warps through shared memory.
 // * Split keys (flash-decoding): the host cuts the page table's width,
@@ -50,7 +58,7 @@
 //   q_lens[s] are written as zeros (the Pallas kernel left them as garbage for
 //   the caller to discard; zeros keep NaNs out of the padded rows the engine
 //   carries through the rest of the layer).
-// * Inputs bf16 or fp32, output in q's type.  hd in {32, 64, 128, 256}; any
+// * Inputs bf16 or fp32, output in q's type.  hd in {32, 64, 96, 128, 256}; any
 //   page_size >= 1.  q and the pages must be 16-byte aligned.
 
 #include <cuda_bf16.h>
@@ -103,11 +111,13 @@ paged_attention_kernel(const T* __restrict__ q,             // (S, q_max, H, HD)
   constexpr int kWord = 16 / (int)sizeof(T);                 // elements per 16-byte load
   constexpr int EPL = HD / 32 > kWord ? HD / 32 : kWord;      // elements per lane
   constexpr int kWords = EPL / kWord;                         // loads per lane per row
-  constexpr int LG = HD / EPL;                                // lanes per key
+  constexpr int kUsed = HD / EPL;                             // lanes that load a key's row
+  constexpr int LG = kUsed <= 4 ? kUsed : kUsed <= 8 ? 8 : kUsed <= 16 ? 16 : 32;  // lanes per key
   constexpr int KG = 32 / LG;                                 // keys per warp at once
   constexpr int kSlots = kWarps * KG;                         // keys per block at once
   constexpr int U = VT <= 4 ? 4 : 2;                          // keys per lane group per step
-  static_assert(LG >= 1 && LG <= 32 && 32 % LG == 0, "hd out of range");
+  static_assert(HD % EPL == 0 && EPL % kWord == 0, "hd out of range");
+  static_assert(LG >= 1 && LG <= 32 && 32 % LG == 0 && kUsed <= LG, "hd out of range");
 
   __shared__ float red_acc[kWarps][VT][HD];
   __shared__ float red_m[kWarps][VT];
@@ -123,6 +133,7 @@ paged_attention_kernel(const T* __restrict__ q,             // (S, q_max, H, HD)
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int sub = lane % LG;                  // this lane's slice of the head dims
+  const bool used = kUsed == LG || sub < kUsed;   // an idle lane (hd 96) holds zeros
   const int slot = warp * KG + lane / LG;     // this lane group's key slot
   const int q_len = min(q_lens[s], q_max);
   const int kv_len = kv_lens[s];
@@ -175,10 +186,11 @@ paged_attention_kernel(const T* __restrict__ q,             // (S, q_max, H, HD)
 #pragma unroll
   for (int i = 0; i < VT; ++i) {
     const bool real = is_real(i);
-    const T* qp = q + (real ? vec_index(i) : 0) * HD + sub * EPL;
+    const T* qp = q + (real ? vec_index(i) : 0) * HD + (used ? sub * EPL : 0);
 #pragma unroll
     for (int w = 0; w < kWords; ++w) {
-      const uint4 word = real ? *reinterpret_cast<const uint4*>(qp + w * kWord) : make_uint4(0, 0, 0, 0);
+      const uint4 word = real && used ? *reinterpret_cast<const uint4*>(qp + w * kWord)
+                                      : make_uint4(0, 0, 0, 0);
       unpack(word, &qv[i][w * kWord], q);
     }
 #pragma unroll
@@ -195,7 +207,7 @@ paged_attention_kernel(const T* __restrict__ q,             // (S, q_max, H, HD)
 
   const int64_t token_stride = (int64_t)2 * n_kv_heads * HD;
   const int64_t page_stride = (int64_t)page_size * token_stride;
-  const T* kv_head = kv_pages + (int64_t)(2 * kvh) * HD + sub * EPL;
+  const T* kv_head = kv_pages + (int64_t)(2 * kvh) * HD + (used ? sub * EPL : 0);
   const int* pt = page_table + (int64_t)s * max_pages;
 
   auto page_of = [&](int key) {
@@ -214,7 +226,7 @@ paged_attention_kernel(const T* __restrict__ q,             // (S, q_max, H, HD)
       const T* row = kv_head + page[u] * page_stride + (int64_t)(key % page_size) * token_stride;
 #pragma unroll
       for (int w = 0; w < kWords; ++w) {
-        if (key < k_end) {
+        if (used && key < k_end) {
           kw[u][w] = __ldg(reinterpret_cast<const uint4*>(row + w * kWord));
           vw[u][w] = __ldg(reinterpret_cast<const uint4*>(row + HD + w * kWord));
         } else {
@@ -297,7 +309,7 @@ paged_attention_kernel(const T* __restrict__ q,             // (S, q_max, H, HD)
     }
   }
   // then the warps, through shared memory
-  if (lane < LG) {
+  if (lane < LG && used) {
 #pragma unroll
     for (int i = 0; i < VT; ++i) {
 #pragma unroll
@@ -436,6 +448,7 @@ cudaError_t launch_hd(int hd, int vt, const void* q, const void* kv_pages,
   switch (hd) {
     PAGED_ATTN_CASE(32)
     PAGED_ATTN_CASE(64)
+    PAGED_ATTN_CASE(96)
     PAGED_ATTN_CASE(128)
     PAGED_ATTN_CASE(256)
     default:

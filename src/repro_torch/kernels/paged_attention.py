@@ -36,7 +36,7 @@ from . import build
 NEG_INF = -1e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128, 256)
+_HEAD_DIMS = (32, 64, 96, 128, 256)
 SPLIT_KEYS = 256   # keys per split, rounded up to whole pages
 
 

@@ -23,10 +23,6 @@ from . import ssm as SSM
 
 DENSE_FAMILIES = ("dense", "vlm", "encoder", "audio")
 FAMILIES = DENSE_FAMILIES + ("ssm", "hybrid")
-# recurrentgemma's local attention has head dim 256; the attention kernel
-# the compiled block would dispatch to has instances at 32, 64 and 128 only
-HYBRID_BUDGET_TODO = ("the hybrid family under autochunk_budget: its attention at head dim"
-                      " 256 has no attention kernel instance (ROADMAP queue A item 10)")
 
 
 class ParamTree(nn.Module):
@@ -270,16 +266,17 @@ def forward(cfg: ModelConfig, params: Model, batch, *, window: Optional[int] = N
     """Full-sequence forward of the dense, SSM and hybrid families.
     Returns (logits, aux_loss).
 
-    With ``cfg.autochunk_budget`` each block of a dense or SSM model runs
-    the AutoChunk plan of one block, compiled at the first layer and
-    replayed for the rest; the SSM block's scan stays one kernel op inside
-    the compiled block.  The hybrid family under a budget raises.
+    With ``cfg.autochunk_budget`` each block runs the AutoChunk plan of one
+    block, compiled at the first layer of its kind and replayed for the
+    rest: one plan for a dense or SSM model, two for the hybrid (its local
+    attention block, tag ``hyb_attn``, and its RG-LRU block, ``hyb_rg``).
+    The SSM and RG-LRU scans stay one kernel op inside the compiled block.
     """
     fam = cfg.family
     if fam not in FAMILIES:
         raise NotImplementedError(
             f"family {fam!r} (ROADMAP queue A item 10)")
-    h, positions = embed_inputs(cfg, params, batch)
+    h, _ = embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if fam in DENSE_FAMILIES:
         h = _run_blocks(cfg, params, h, f"dense{window}",
@@ -288,12 +285,17 @@ def forward(cfg: ModelConfig, params: Model, batch, *, window: Optional[int] = N
     elif fam == "ssm":
         h = _run_blocks(cfg, params, h, "ssm", lambda p, x: ssm_block_full(cfg, p, x))
     else:
-        if cfg.autochunk_budget:
-            raise NotImplementedError(HYBRID_BUDGET_TODO)
+        blocks = {"hyb_attn": lambda p, x: dense_block_full(cfg, p, x, window=cfg.local_window),
+                  "hyb_rg": lambda p, x: rg_block_full(cfg, p, x)}
         for i in range(cfg.n_layers):
+            tag = "hyb_attn" if cfg.is_attention_layer(i) else "hyb_rg"
             p = params.layer_params(i)
-            h = (dense_block_full(cfg, p, h, positions, window=cfg.local_window)
-                 if cfg.is_attention_layer(i) else rg_block_full(cfg, p, h))
+            if cfg.autochunk_budget:
+                # each kind compiled at its first layer, as in the JAX package;
+                # the compiler takes a nested dict of tensors, not a module
+                h = _maybe_autochunk(cfg, tag, blocks[tag])(_index_tree(p), h)
+            else:
+                h = blocks[tag](p, h)
     h = L.apply_norm(cfg, h, params["final_norm"])
     logits = L.unembed(cfg, params["embed"], h)
     return logits, aux

@@ -4,7 +4,8 @@ The same numpy inputs go through ``repro.kernels.chunked_attention``'s
 ``computed_attention`` / ``masked_attention`` in interpret mode (K and V
 repeated per query head, as ``ops._expand_gqa`` does) and through the port's
 wrappers on CPU tensors, which run the plain PyTorch versions with native
-GQA.  Tolerances: float32 1e-5 (the two sum in another order); bfloat16
+GQA, at hd 32 and at the head dims 80 (hubert-xlarge), 96 (phi3-mini) and
+256 (recurrentgemma's local attention).  Tolerances: float32 1e-5 (the two sum in another order); bfloat16
 2e-3 + 2^-7 |want| (both round an f32 result to 8 mantissa bits and may land
 one unit apart).
 """
@@ -50,22 +51,35 @@ def _close(got, want, dtype):
     np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
 
 
-# (Sq, Skv, group, causal, window, q_offset)
+# (hd, N, Sq, Skv, group, causal, window, q_offset)
 COMPUTED = [
-    pytest.param(17, 60, 1, True, None, 43, id="sq17-causal-last-chunk"),
-    pytest.param(60, 128, 2, True, None, 0, id="sq60-causal-first-gqa2"),
-    pytest.param(128, 256, 4, True, None, 64, id="sq128-causal-mid-gqa4"),
-    pytest.param(60, 128, 1, False, None, 0, id="sq60-full"),
-    pytest.param(17, 60, 2, True, 16, 43, id="sq17-window-gqa2"),
-    pytest.param(128, 256, 1, True, 32, 128, id="sq128-window-last-chunk"),
+    pytest.param(32, 2, 17, 60, 1, True, None, 43, id="sq17-causal-last-chunk"),
+    pytest.param(32, 2, 60, 128, 2, True, None, 0, id="sq60-causal-first-gqa2"),
+    pytest.param(32, 2, 128, 256, 4, True, None, 64, id="sq128-causal-mid-gqa4"),
+    pytest.param(32, 2, 60, 128, 1, False, None, 0, id="sq60-full"),
+    pytest.param(32, 2, 17, 60, 2, True, 16, 43, id="sq17-window-gqa2"),
+    pytest.param(32, 2, 128, 256, 1, True, 32, 128, id="sq128-window-last-chunk"),
+] + [
+    # the head dims of hubert-xlarge (80), phi3-mini (96) and recurrentgemma's
+    # local attention (256): causal with ragged Sq and Skv; and
+    # recurrentgemma's MQA, 16 query heads over 1, in a window whose first 5
+    # rows see no key (Skv 64: the Pallas kernel's kv block and the CUDA
+    # kernel's tile are the same, so both average V over the same keys)
+    pytest.param(hd, N, Sq, Skv, group, True, window, off, id=f"hd{hd}-{name}")
+    for hd in (80, 96, 256)
+    for name, N, group, Sq, Skv, off, window in (
+        ("ragged", 2, 2, 37, 100, 50, None),
+        ("mqa-window-dead-rows", 1, 16, 40, 64, -5, 16))
 ]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("Sq,Skv,group,causal,window,q_offset", COMPUTED)
-def test_computed_matches_pallas_interpret(Sq, Skv, group, causal, window, q_offset, dtype):
-    (q, k, v), (jq, jk, jv) = _inputs(2, group, Sq, Skv, 32, dtype, seed=Sq + group)
-    scale = 32 ** -0.5
+@pytest.mark.parametrize("hd,N,Sq,Skv,group,causal,window,q_offset", COMPUTED)
+def test_computed_matches_pallas_interpret(hd, N, Sq, Skv, group, causal, window, q_offset,
+                                           dtype):
+    (q, k, v), (jq, jk, jv) = _inputs(N, group, Sq, Skv, hd, dtype,
+                                      seed=Sq + group + hd - 32)
+    scale = hd ** -0.5
     want = JCA.computed_attention(jq, _jax_repeat(jk, group), _jax_repeat(jv, group),
                                   scale=scale, causal=causal, window=window,
                                   q_offset=q_offset, interpret=True)
@@ -107,18 +121,27 @@ def test_computed_rows_with_no_live_key_follow_the_tile_skip():
     np.testing.assert_allclose(got[:, 5:].numpy(), want[:, 5:], atol=1e-5)
 
 
+# (hd, N, Sq, Skv, group, per_head)
+MASKED = [
+    pytest.param(32, 2, 17, 60, 1, False, id="sq17-shared-mask"),
+    pytest.param(32, 2, 60, 128, 2, True, id="sq60-per-head-gqa2"),
+    pytest.param(32, 2, 128, 128, 4, False, id="sq128-shared-gqa4"),
+] + [
+    # hd 80, 96 and 256: recurrentgemma's MQA (16 query heads over 1), ragged
+    # Sq and Skv, a mask per query head
+    pytest.param(hd, 1, 24, 90, 16, True, id=f"hd{hd}-mqa-per-head") for hd in (80, 96, 256)
+]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("Sq,Skv,group,per_head", [
-    pytest.param(17, 60, 1, False, id="sq17-shared-mask"),
-    pytest.param(60, 128, 2, True, id="sq60-per-head-gqa2"),
-    pytest.param(128, 128, 4, False, id="sq128-shared-gqa4"),
-])
-def test_masked_matches_pallas_interpret(Sq, Skv, group, per_head, dtype):
-    (q, k, v), (jq, jk, jv) = _inputs(2, group, Sq, Skv, 32, dtype, seed=Skv + group)
+@pytest.mark.parametrize("hd,N,Sq,Skv,group,per_head", MASKED)
+def test_masked_matches_pallas_interpret(hd, N, Sq, Skv, group, per_head, dtype):
+    (q, k, v), (jq, jk, jv) = _inputs(N, group, Sq, Skv, hd, dtype,
+                                      seed=Skv + group + hd - 32)
     rng = np.random.default_rng(Sq)
-    mask = rng.random((2 * group if per_head else 1, Sq, Skv)) < 0.6
+    mask = rng.random((N * group if per_head else 1, Sq, Skv)) < 0.6
     mask[:, 3, :] = False                  # a row with no live key
-    scale = 32 ** -0.5
+    scale = hd ** -0.5
     want = JCA.masked_attention(jq, _jax_repeat(jk, group), _jax_repeat(jv, group),
                                 jnp.asarray(mask), scale=scale, interpret=True)
     got = CA.masked_attention(q, k, v, torch.from_numpy(mask), scale=scale, group=group)
@@ -164,7 +187,10 @@ def _meta(shape, dtype=torch.bfloat16):
 # non-CPU tensor the wrapper raises before reaching any device
 NO_KERNEL = {
     "hd16": (dict(q=_meta((4, 8, 16)), k=_meta((2, 8, 16))), "hd in"),
-    "hd256": (dict(q=_meta((4, 8, 256)), k=_meta((2, 8, 256))), "hd in"),
+    "hd48": (dict(q=_meta((4, 8, 48)), k=_meta((2, 8, 48))), "hd in"),
+    # hd 256 has an instance: it passes the head-dim gate and is refused
+    # only for the device
+    "hd256": (dict(q=_meta((4, 8, 256)), k=_meta((2, 8, 256))), "no kernel for device"),
     "non_contiguous_q": (dict(q=_meta((4, 64, 8)).transpose(1, 2), k=_meta((2, 8, 64))),
                          "contiguous"),
     "meta_device": (dict(q=_meta((4, 8, 64)), k=_meta((2, 8, 64))), "no kernel for device"),

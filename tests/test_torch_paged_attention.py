@@ -281,7 +281,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(what):
 def test_head_dim_gate_is_the_cuda_kernels_alone(check):
     """A head dim without a CUDA instance is refused on the card only: the
     CPU serves hd 16 equal to the Pallas kernel, and ``cuda_refusal`` names
-    the kernel's head dims for 16 and 96 and passes 64."""
+    the kernel's head dims for 16 and 48 and passes 64 and 96."""
     if check == "cpu_serves_hd16_like_pallas":
         q_lens, kv_lens = [2, 1], [5, 3]
         q, pages, table, ql, kl = _case(q_lens, kv_lens, H=4, Kv=2, hd=16, ps=4)
@@ -291,7 +291,7 @@ def test_head_dim_gate_is_the_cuda_kernels_alone(check):
         np.testing.assert_allclose(_real_rows(ours, q_lens), _real_rows(theirs, q_lens),
                                    atol=ATOL, rtol=0)
     else:
-        for hd in (16, 96):
+        for hd in (16, 48):
             why = PA.cuda_refusal(hd)
             assert why is not None and str(PA._HEAD_DIMS) in why and str(hd) in why
-        assert PA.cuda_refusal(64) is None
+        assert PA.cuda_refusal(64) is None and PA.cuda_refusal(96) is None

@@ -98,9 +98,11 @@ def test_engine_for_the_card_refuses_a_head_dim_at_construction(monkeypatch):
     from repro_torch.serving import engine as E
 
     monkeypatch.setattr(E, "resolve_device", lambda device: torch.device("cuda"))
+    # hd 48 has no paged kernel instance; phi3-mini's hd 96 has one
     cfg = get_config("phi3-mini-3.8b").reduced().with_(
-        d_model=192, n_heads=2, n_kv_heads=2, sliding_window=ENGINE["max_len"])
-    with pytest.raises(NotImplementedError, match="hd in .* got 96.*queue B2"):
+        d_model=96, n_heads=2, n_kv_heads=2, sliding_window=ENGINE["max_len"])
+    assert cfg.hd == 48 and E.cuda_refusal(96) is None
+    with pytest.raises(NotImplementedError, match="hd in .* got 48.*queue B2"):
         PagedServeEngine(cfg, None, **ENGINE)
 
 

@@ -12,7 +12,9 @@ tolerance covers f32 sums in another order (the port's sequential RG-LRU
 loop against JAX's associative scan, its SSD kernel op against the jnp
 einsums).  The per-block mamba2 forward under a budget keeps the scan as
 one ``repro_torch::ssd_scan`` node in the compiled block and equals the
-unchunked port (1e-5).
+unchunked port (1e-5); so does the hybrid's, with its two block kinds
+compiled once each and the RG-LRU scan one ``repro_torch::rglru_scan``
+node.
 """
 import jax
 import jax.numpy as jnp
@@ -170,10 +172,28 @@ def test_per_block_forward_keeps_the_scan_op(mamba):
 
 
 def test_hybrid_under_a_budget_raises(hybrid):
+    """The hybrid under a budget runs (it raised before its attention had a
+    kernel instance at hd 256): each block kind is compiled once, at its
+    first layer, and replayed for the rest of its kind; the RG-LRU block's
+    scan stays one ``repro_torch::rglru_scan`` node; the logits equal the
+    unchunked port's.  ``tests/test_torch_hybrid_budget.py`` holds the
+    same path at hd 256 against the JAX package."""
     cfg, _, model, _ = hybrid
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 10"):
-        M.forward(cfg.with_(autochunk_budget=0.5), model,
-                  {"tokens": torch.zeros((1, 8), dtype=torch.long)})
+    batch = {"tokens": torch.tensor(
+        np.random.default_rng(6).integers(0, cfg.vocab_size, (1, 96)))}
+    M._AC_CACHE.clear()
+    want = M.forward(cfg, model, batch)[0]
+    got = M.forward(cfg.with_(autochunk_budget=0.5), model, batch)[0]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+    cfs = {key[2]: cf for key, cf in M._AC_CACHE.items()}
+    assert set(cfs) == {"hyb_attn", "hyb_rg"}
+    assert cfs["hyb_attn"].stats()["compiles"] == 1 and cfs["hyb_attn"].stats()["shape_hits"] == 0
+    assert cfs["hyb_rg"].stats()["compiles"] == 1 and cfs["hyb_rg"].stats()["shape_hits"] == 1
+    planned = cfs["hyb_rg"].trace(M._index_tree(model["blocks"][0]),
+                                  M.embed_inputs(cfg, model, batch)[0]).search()
+    scans = [n for n in planned.graph.nodes if op_name(n) == "rglru_scan"]
+    assert len(scans) == 1 and scans[0].target is torch.ops.repro_torch.rglru_scan.default
+    M._AC_CACHE.clear()
 
 
 def test_quickstart_compiles_the_ssm_forward(capsys):
