@@ -10,18 +10,32 @@ registers, shared memory and spills (``-Xptxas -v``) and, from
 (``[route]`` lines; the bf16 attention kernel, computed and masked, and
 the bf16 FFN kernel must have HGMMA, the bf16 SSD kernel HMMA or HGMMA,
 their f32 kernels, the mask's tile pre-pass and the RG-LRU kernels none),
-and drives the port's paths, two at
-gpt-paper's full width, one at minitron-4b's, two at phi3-mini-3.8b's, one
-at mamba2-1.3b's and two at recurrentgemma-9b's:
+and drives the port's paths, three at
+gpt-paper's full width, one at minitron-4b's, three at phi3-mini-3.8b's,
+one at mamba2-1.3b's and two at recurrentgemma-9b's:
 
 * serving: the paged engine, its kernel held against its plain version at
   the serving shapes (gpt-paper's and phi3-mini's heads) and at edge cases
   (split decode batches with a row of q_len 0 and splits past kv_len, GQA
-  hd 256, hd 96), the served tokens' digest beside those served with the
+  hd 256, hd 96, and the prefix phase's prefill steps: a hit's 152 rows
+  from position 1000, mid-page, padded to the 512-row chunk, and a miss's
+  last 128 rows), the served tokens' digest beside those served with the
   plain version swapped in, the served logits against the dense forward;
   then phi3-mini-3.8b (hd 96) served the same way at full width, its fp32
   served logits at 4 layers against its dense forward, and a head dim the
   paged kernel has no instance for (48) refused when the engine is built;
+* the prefix cache and its host spill tier at phi3-mini's full width: 8
+  requests of 1152 tokens sharing a 1000-token system prompt, served one
+  by one, rids 2 and 5 uncached fillers that force cached pages into the
+  pinned host arena (5 prefix hits, copy-on-write of each hit's boundary
+  page, pages restored, no refusal, restored pages bit-equal to their bytes
+  before the spill, invariants, nothing left after ``flush()``, paged
+  launches 32 x steps; the paged kernel against its plain version, bf16
+  and f32, on layer 0's own prefill inputs of a miss, the first hit and a
+  hit over restored pages); TTFT beside the same requests with the cache off;
+  equal float32 tokens and first-token logits within 1e-3 with the cache
+  on and off at 4 layers; and the serving CLI's ``--shared-prefix``
+  scenario at gpt-paper's width (its ``[serve] prefix:`` line);
 * the AutoChunk compiler: the 12-layer bf16 forward of 8192 tokens compiled
   at a 0.2 activation budget, once with the computed-mask attention kernel
   and once with ``mask_mode="bool"`` (the bool-mask kernel); predicted and
@@ -150,10 +164,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ragged_case(torch, *, q_lens, kv_lens, H, Kv, hd, ps, max_len, dtype, seed):
-    """Random q and a shuffled page pool holding each row's context."""
+def ragged_case(torch, *, q_lens, kv_lens, H, Kv, hd, ps, max_len, dtype, seed, q_max=None):
+    """Random q and a shuffled page pool holding each row's context; q is
+    padded to ``q_max`` rows (default: the longest row), as the engine pads
+    a prefill step to its chunk."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    S, q_max = len(q_lens), max(q_lens)
+    S, q_max = len(q_lens), q_max or max(q_lens)
     n_used = [-(-kl // ps) for kl in kv_lens]
     P = sum(n_used) + 1
     max_pages = -(-max_len // ps)
@@ -315,6 +331,14 @@ PAGED_EDGE_SHAPES = {
                             hd=96),
     "edge_mixed_gqa_hd96": dict(q_lens=[3, 1, 0, 9], kv_lens=[40, 300, 0, 1200], H=16, Kv=4,
                                 hd=96),
+    # the prefix phase's prefill steps at phi3's heads, padded to the 512-row
+    # chunk as the engine pads them: a hit's tail of 152 rows whose first
+    # key and query sit at position 1000, mid-page and mid-tile, and a
+    # miss's last chunk of 128 rows at kv 1152
+    "phi3_prefix_hit": dict(q_lens=[152, 0, 0, 0], kv_lens=[1152, 0, 0, 0], q_max=512, H=32,
+                            Kv=32, hd=96),
+    "phi3_prefix_miss_tail": dict(q_lens=[128, 0, 0, 0], kv_lens=[1152, 0, 0, 0], q_max=512,
+                                  H=32, Kv=32, hd=96),
 }
 
 
@@ -493,6 +517,307 @@ def serve_phi3(torch, PA, stats, M, lens, card):
     return dict(launches=launches, steps=steps, tokens=toks, wall_s=wall, tok_s=toks / wall,
                 ttft_mean_s=statistics.mean(ttft), ttft_max_s=max(ttft),
                 prefill_chunk=plan.chunk, plain_tokens_equal=same)
+
+
+# The shared-system-prompt scenario of the prefix cache at phi3-mini's full
+# width: a 1000-token shared prefix (mid-page at page size 16, so every hit
+# copy-on-writes its boundary page), prompts of 1152 tokens, 32 new tokens,
+# 8 requests drained one by one, every third (rids 2 and 5) an uncached
+# filler whose 74 pages do not fit beside the cached ones, so admission
+# spills cached pages to the pinned host arena and the next shared request
+# restores them
+PREFIX = dict(arch="phi3-mini-3.8b", shared=1000, prompt_len=1152, max_new=32, requests=8,
+              max_len=2048, num_pages=120, spill_pages=64, max_seqs=4, check_layers=4)
+
+
+def prefix_specs(vocab, seed):
+    """(prompt, cache_prefix) of each request of the scenario, drawn as the
+    serving CLI's ``--shared-prefix`` draws them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, PREFIX["shared"]).tolist()
+    specs = []
+    for i in range(PREFIX["requests"]):
+        if i % 3 == 2:
+            specs.append((rng.integers(0, vocab, PREFIX["prompt_len"]).tolist(), False))
+        else:
+            tail = rng.integers(0, vocab, PREFIX["prompt_len"] - PREFIX["shared"]).tolist()
+            specs.append((shared + tail, True))
+    return specs
+
+
+def prefix_engine(PagedServeEngine, Request, cfg, params, *, cache):
+    """A paged engine for the scenario, with the prefix cache (and its
+    64-page host arena) on or off, warmed by one uncached request."""
+    kw = dict(prefix_cache=True, spill_pages=PREFIX["spill_pages"]) if cache else {}
+    engine = PagedServeEngine(cfg, params, max_seqs=PREFIX["max_seqs"],
+                              max_len=PREFIX["max_len"], page_size=SERVE["page_size"],
+                              num_pages=PREFIX["num_pages"], prefill_chunk="auto",
+                              autochunk_budget=SERVE["budget"], device="cuda", **kw)
+    engine.submit(Request(rid=-1, prompt=[1] * 16, max_new_tokens=2, cache_prefix=False))
+    engine.run()
+    engine.finished.clear()
+    engine.sched_stats.update(dict.fromkeys(engine.sched_stats, 0))
+    return engine
+
+
+def first_token_logits(engine, Request, specs, max_new):
+    """Serve ``specs`` one by one; returns the requests and each one's
+    logits of its first token (the step that ends its prefill)."""
+    last = []
+    run_ragged = engine.run_ragged
+
+    def capture(*a):
+        out = run_ragged(*a)
+        last.append(out[0].float())     # the one running request is row 0
+        return out
+
+    engine.run_ragged = capture
+    reqs, logits = [], []
+    try:
+        for i, (prompt, cache_prefix) in enumerate(specs):
+            r = Request(rid=i, prompt=prompt, max_new_tokens=max_new, cache_prefix=cache_prefix)
+            engine.submit(r)
+            while not r.generated:
+                engine.step()
+            logits.append(last[-1])
+            last.clear()
+            engine.run()
+            reqs.append(r)
+    finally:
+        engine.run_ragged = run_ragged
+    return reqs, logits
+
+
+def capture_prefill_calls(torch, serving_engine, pool, keep):
+    """Put a spy where the engine calls the paged kernel: while ``keep[0]``
+    is true it copies the inputs of layer 0's call of every prefill step
+    (a row longer than 1) into ``keep[1]``; the kernel runs as usual, so
+    the launch count is the engine's own.  Returns the call it replaced."""
+    wrapped = serving_engine.paged_attention_blocked
+
+    def spy(q, pages, table, q_lens, kv_lens, *a, **kw):
+        if keep[0] and pages.data_ptr() == pool.pages[0].data_ptr() and int(q_lens.max()) > 1:
+            keep[1].append(tuple(t.clone() for t in (q, pages, table, q_lens, kv_lens)))
+        return wrapped(q, pages, table, q_lens, kv_lens, *a, **kw)
+
+    serving_engine.paged_attention_blocked = spy
+    return wrapped
+
+
+def check_prefix_calls(torch, PA, calls, errs):
+    """The kernel against its plain version on the prefix phase's own
+    layer-0 prefill inputs (a miss's chunks, a hit's tail starting
+    mid-page, a hit over restored pages), as served in bf16 and cast to
+    float32, under ``TOL``; padding rows must be zeros."""
+    for label, (q, pages, table, q_lens, kv_lens) in calls:
+        ql, kl = q_lens.tolist(), kv_lens.tolist()
+        for dt_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt_name)
+            args = (q.to(dtype), pages.to(dtype), table, q_lens, kv_lens)
+            got = PA.paged_attention_blocked(*args)
+            want = PA.paged_attention_blocked_plain(*args)
+            torch.cuda.synchronize()
+            atol, rtol = TOL[dt_name]
+            err, share = real_rows_err(got, want, ql, atol, rtol)
+            pad = torch.arange(got.shape[1], device="cuda")[None, :] >= q_lens[:, None]
+            print(f"[kernel] paged_attention prefix {label} layer 0 {dt_name}"
+                  f" q_max={got.shape[1]} q_lens={ql} kv_lens={kl} (first query at"
+                  f" {[k - n for k, n in zip(kl, ql) if n]}): max_abs_err {err:.3e},"
+                  f" {share:.3f} of the limit {atol:g} + {rtol:g}|want|")
+            check(bool((got[pad] == 0).all()) and bool(torch.isfinite(got).all()),
+                  f"prefix {label} {dt_name}: padding rows not zero or non-finite output")
+            check(share <= 1.0, f"paged_attention prefix {label} {dt_name} err {err}")
+            errs[dt_name] = max(errs.get(dt_name, 0.0), err)
+
+
+def serve_prefix(torch, PA, stats, M, card):
+    """The prefix cache and its host spill tier at phi3-mini's full width
+    (32 layers, bf16, hd 96 on the paged kernel), the scenario above: the
+    launch count and counters zeroed just before and read just after; 5
+    prefix hits (rids 1, 3, 4, 6, 7), a copy-on-write per hit, pages
+    restored and no refusal; every cached page that was spilled and then
+    restored bit-equal to its bytes before the first filler; the pool's and
+    the cache's invariants; nothing left after ``flush()``; the paged
+    kernel against its plain version on layer 0's prefill inputs of rid 0
+    (a miss), rid 1 (the first hit, from position 1000) and rid 3 (a hit
+    over restored pages), kept by a spy as the engine served them.  The same
+    requests with the cache off give the TTFT beside it, and at 4 layers in
+    float32 the scenario gives equal greedy tokens and first-token logits
+    within 1e-3 with the cache on and off."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import PagedServeEngine, Request
+    from repro_torch.serving import engine as serving_engine
+
+    cfg = get_config(PREFIX["arch"])
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(5), device="cuda")
+    specs = prefix_specs(cfg.vocab_size, 5)
+    engine = prefix_engine(PagedServeEngine, Request, cfg, params, cache=True)
+    pool, cache = engine.prefix_cache.pool, engine.prefix_cache
+    check(pool.pages.device.type == "cuda" and pool._host.is_pinned(),
+          "the pool is not on the card or its host arena is not pinned")
+    # layer 0's prefill inputs of rid 0 (a miss: chunks at kv 512, 1024,
+    # 1152), rid 1 (the first hit) and rid 3 (a hit over restored pages)
+    keep = [False, []]
+    kept, restored_by = {}, {}
+    wrapped = capture_prefill_calls(torch, serving_engine, pool, keep)
+    before = stats.snapshot()
+    torch.cuda.synchronize()
+    PA.paged_attention_blocked.launches = 0
+    t0 = time.perf_counter()
+    reqs, snapshot, seen_spilled = [], {}, set()
+    try:
+        for i, (prompt, cache_prefix) in enumerate(specs):
+            if i == 2:   # before the first filler: each cached page's KV bytes
+                snapshot = {id(n): (n, pool.pages[:, n.page].clone())
+                            for n in cache._iter_nodes()}
+            r = Request(rid=i, prompt=prompt, max_new_tokens=PREFIX["max_new"],
+                        cache_prefix=cache_prefix)
+            keep[0] = i in (0, 1, 3)
+            b = stats.snapshot()
+            engine.submit(r)
+            engine.run()
+            kept[i], keep[1] = keep[1], []
+            restored_by[i] = stats.delta(b)["pages_restored"]
+            reqs.append(r)
+            seen_spilled |= {id(n) for n in cache._iter_nodes() if n.spilled}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = PA.paged_attention_blocked.launches
+    finally:
+        serving_engine.paged_attention_blocked = wrapped
+    d = stats.delta(before)
+    steps = engine.sched_stats["steps"]
+    toks = sum(len(r.generated) for r in reqs)
+    check(all(r.done and len(r.generated) == PREFIX["max_new"] for r in reqs),
+          "prefix: not every request finished with max_new tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          "prefix: a generated token lies outside the vocabulary")
+    check(d["prefix_hits"] == 5, f"prefix: {d['prefix_hits']} prefix hits, not 5")
+    check(d["cow_copies"] >= 5, f"prefix: {d['cow_copies']} copy-on-writes, fewer than 5")
+    check(d["pages_restored"] > 0, "prefix: no cached page was restored from the host arena")
+    check(d["admission_refusals"] == 0, f"prefix: {d['admission_refusals']} admission refusals")
+    check(launches == cfg.n_layers * steps > 0,
+          f"prefix: paged_attention launched {launches} times in {steps} steps")
+    restored = [(n, want) for key, (n, want) in snapshot.items()
+                if key in seen_spilled and n.resident]
+    check(restored, "prefix: no page of the snapshot was spilled and then restored")
+    for n, want in restored:
+        check(torch.equal(pool.pages[:, n.page], want),
+              f"prefix: the restored page {n.page} differs from its bytes before the spill")
+    pool.check_invariants()
+    cache.check_invariants()
+    n_restored = len(restored)
+    n_chunks = -(-PREFIX["prompt_len"] // engine.prefill_chunk)
+    check([len(kept[0]), len(kept[1]), len(kept[3])] == [n_chunks, 1, 1] and restored_by[3] > 0,
+          f"prefix: layer-0 prefill calls kept {[len(kept[i]) for i in (0, 1, 3)]}, not"
+          f" {n_chunks} (the miss) and 1 each (the hits), or rid 3 restored"
+          f" {restored_by[3]} pages")
+    paged_errs = {}
+    check_prefix_calls(torch, PA, [(f"miss rid 0 chunk {j}", c) for j, c in enumerate(kept[0])]
+                       + [("hit rid 1", kept[1][0]),
+                          (f"hit rid 3 over {restored_by[3]} restored pages", kept[3][0])],
+                       paged_errs)
+    del kept
+    m = engine.metrics()
+    pc = m["prefix_cache"]
+    print(f"[serve] prefix phi3-mini-3.8b bf16 full width (L={cfg.n_layers} d={cfg.d_model}"
+          f" H={cfg.n_heads} hd={cfg.hd}): {len(reqs)} requests of {PREFIX['prompt_len']}"
+          f" tokens sharing {PREFIX['shared']}, one by one (rids 2 and 5 uncached fillers),"
+          f" {toks} tokens in {wall:.3f}s, {steps} steps; {card}")
+    print(f"[serve] prefix counters: prefix_hits={d['prefix_hits']}"
+          f" prefix_tokens_reused={d['prefix_tokens_reused']} cow_copies={d['cow_copies']}"
+          f" pages_spilled={d['pages_spilled']} pages_restored={d['pages_restored']}"
+          f" admission_refusals={d['admission_refusals']}"
+          f" spill_retries={engine.sched_stats['spill_retries']}; cache {pc}")
+    print(f"[serve] prefix paged_attention launches {launches} = {cfg.n_layers} layers x"
+          f" {steps} steps; {n_restored} pages spilled and restored, each bit-equal to its"
+          f" bytes before the first filler; host arena {pool.host_capacity} pages pinned"
+          f" ({pool._host.numel() * pool._host.element_size()} B)")
+    cache.flush()
+    check(pool.free_pages == pool.num_pages and pool.spilled_pages == 0
+          and pool.alloc_events == pool.free_events,
+          f"prefix: after flush free {pool.free_pages} of {pool.num_pages}, spilled"
+          f" {pool.spilled_pages}, allocated {pool.alloc_events} freed {pool.free_events}")
+    print(f"[serve] prefix after flush: free_pages {pool.free_pages} = num_pages, spilled 0,"
+          f" pages allocated {pool.alloc_events} = freed {pool.free_events}")
+    del engine, pool, cache, snapshot, restored
+    torch.cuda.empty_cache()
+
+    # the same requests with the cache off: each request's TTFT beside the
+    # cache's, and which bf16 tokens agree (information)
+    off_engine = prefix_engine(PagedServeEngine, Request, cfg, params, cache=False)
+    off = []
+    for i, (prompt, cache_prefix) in enumerate(specs):
+        r = Request(rid=i, prompt=prompt, max_new_tokens=PREFIX["max_new"],
+                    cache_prefix=cache_prefix)
+        off_engine.submit(r)
+        off_engine.run()
+        off.append(r)
+    torch.cuda.synchronize()
+    ttft = {r.rid: (r.ttft_s, o.ttft_s) for r, o in zip(reqs, off) if r.rid % 3 != 2}
+    for rid, (on_s, off_s) in ttft.items():
+        print(f"[serve] prefix TTFT rid {rid}: cache on {on_s * 1e3:.2f} ms, off"
+              f" {off_s * 1e3:.2f} ms")
+    same = sum(a == b for r, o in zip(reqs, off) for a, b in zip(r.generated, o.generated))
+    print(f"[serve] prefix bf16 tokens equal with the cache on and off: {same} of {toks};"
+          f" {card}")
+    del off_engine, params
+    torch.cuda.empty_cache()
+
+    # float32 at 4 layers: the cache changes no token and moves no logit
+    cfg32 = cfg.with_(dtype="float32", n_layers=PREFIX["check_layers"])
+    params32 = M.init_params(cfg32, torch.Generator(device="cuda").manual_seed(6),
+                             device="cuda")
+    runs = {}
+    for on in (True, False):
+        e = prefix_engine(PagedServeEngine, Request, cfg32, params32, cache=on)
+        runs[on] = first_token_logits(e, Request, specs, PREFIX["max_new"])
+        del e
+    tokens_equal = all(a.generated == b.generated for a, b in zip(runs[True][0], runs[False][0]))
+    err = max(float((a - b).abs().max()) for a, b in zip(runs[True][1], runs[False][1]))
+    print(f"[serve] prefix fp32 L={cfg32.n_layers}: greedy tokens with the cache on and off"
+          f" {'equal' if tokens_equal else 'DIFFER'}, first-token logits max_abs_err"
+          f" {err:.3e} (limit 1e-3)")
+    check(tokens_equal, "prefix: fp32 greedy tokens differ with the cache on and off")
+    check(err <= 1e-3, f"prefix: fp32 first-token logits differ by {err}")
+    del params32, runs
+    torch.cuda.empty_cache()
+    return dict(launches=launches, steps=steps, tokens=toks, wall_s=wall,
+                counters={k: d[k] for k in ("prefix_hits", "prefix_tokens_reused",
+                                            "cow_copies", "pages_spilled", "pages_restored",
+                                            "admission_refusals")},
+                restored_pages_bit_equal=n_restored, paged_errs=paged_errs,
+                ttft_on_off_s=ttft, bf16_tokens_equal=same, fp32_logits_err=err)
+
+
+def serve_prefix_cli(torch, stats):
+    """The serving CLI's shared-prefix scenario on the card (gpt-paper, full
+    width): its ``[serve] prefix:`` line, 5 hits and restored pages."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--arch", "gpt-paper", "--paged", "--device", "cuda", "--prefix-cache",
+                    "--spill-pages", str(PREFIX["spill_pages"]),
+                    "--shared-prefix", str(PREFIX["shared"]),
+                    "--prompt-len", str(PREFIX["prompt_len"]),
+                    "--max-new", str(PREFIX["max_new"]), "--requests", str(PREFIX["requests"]),
+                    "--max-len", str(PREFIX["max_len"]),
+                    "--num-pages", str(PREFIX["num_pages"]),
+                    "--max-seqs", str(PREFIX["max_seqs"])])
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("[serve] prefix:")]
+    check(len(lines) == 1, "the serving CLI printed no [serve] prefix: line")
+    print(f"[serve] CLI gpt-paper --shared-prefix {PREFIX['shared']}: {lines[0][len('[serve] '):]}")
+    got = dict(re.findall(r"(\w+)=(\d+)", lines[0]))
+    check(int(got["prefix_hits"]) == 5 and int(got["pages_restored"]) > 0,
+          f"the serving CLI's prefix counters: {got}")
+    torch.cuda.empty_cache()
+    return {k: int(v) for k, v in got.items()}
 
 
 def check_served_logits(torch, M, cfg32, seed, prompt, label=""):
@@ -2147,6 +2472,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     phi3_serve = serve_phi3(torch, PA, stats, M, lens, card)
 
+    # ---- 4e. phi3-mini-3.8b's prefix cache and host spill tier -----------
+    # (counts zeroed just before the scenario, read just after); the cache
+    # off beside it, fp32 on/off at 4 layers, then the serving CLI's
+    # --shared-prefix scenario at gpt-paper's width
+    torch.cuda.empty_cache()
+    prefix_serve = serve_prefix(torch, PA, stats, M, card)
+    prefix_serve["cli"] = serve_prefix_cli(torch, stats)
+    for dt_name, err in prefix_serve["paged_errs"].items():
+        max_err[dt_name] = max(max_err[dt_name], err)
+
     # ---- 5. served logits against the dense forward, fp32 ----------------
     # gpt-paper at full depth, phi3-mini at 4 layers
     prompt = rng.integers(0, cfg.vocab_size, 600).tolist()
@@ -2359,6 +2694,7 @@ def main() -> int:
             "forward": dict(fwd[mode], fp32_logits_err=fp32_err[mode]),
         })
     entries[0]["phi3_serve"] = phi3_serve
+    entries[0]["prefix_serve"] = prefix_serve
     entries[1]["cache"] = cache_run
     entries[1]["block_shape"] = block_attn_timed
     entries[1]["hybrid_budget_forward"] = hyb_budget

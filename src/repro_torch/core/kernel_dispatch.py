@@ -36,14 +36,15 @@ bodies do not match.
 Each match is checked against the device the compiled program targets
 (``ChunkConfig.kernel_target``): for the card, a site whose shapes the
 CUDA kernel refuses (``cuda_refusal`` of the kernel's module: attention
-outside hd 32/64/128, SwiGLU off the FFN kernel's tiles) keeps its generic
-chunk loop and counts a miss; on the CPU the plain versions take any shape.
+outside hd 32/64/80/96/128/256, SwiGLU off the FFN kernel's tiles) keeps
+its generic chunk loop and counts a miss; on the CPU the plain versions
+take any shape.
 
 A match replaces its interior nodes with one
 :class:`~repro_torch.core.lowering.KernelDispatch` record (the chunk loop
 stays); non-matching bodies keep the generic loop.  ``annotate_candidates``
-runs the matchers during selection and charges each candidate its kernel's
-bytes.  Counters
+runs the matchers during selection and charges each candidate the peak
+the estimator gives its body after dispatch.  Counters
 ``kernel_dispatch_hits`` / ``kernel_dispatch_misses`` /
 ``kernel_dispatch_computed_mask`` in ``core.stats``.  A port of
 ``repro/core/kernel_dispatch.py``.
@@ -66,6 +67,7 @@ from .lowering import (
     BodyOp,
     ChunkLoopNode,
     KernelDispatch,
+    body_peak_model,
     is_chunk_loop,
     refresh_node,
     validate_body,
@@ -137,14 +139,7 @@ class Match:
     reads: Tuple[Node, ...]
     launch: Callable            # fn(env, kw) -> value for root
     extra_bytes: Callable[[int], int]   # bytes the call allocates besides root, at chunk c
-    root_row_bytes: int                 # bytes of root per row of the chunk
     mask: str = "bool"                  # "computed" (a band) or "bool"
-
-    def body_bytes(self, c: int) -> int:
-        """Device bytes of the dispatched body at chunk ``c``: the root and
-        everything the call allocates beside it.  Selection charges this;
-        the estimator charges the same root and ``extra_bytes(c)``."""
-        return self.root_row_bytes * c + self.extra_bytes(c)
 
 
 # ---------------------------------------------------------------------------
@@ -190,12 +185,6 @@ def _is_neg_const(ctx: _BodyCtx, a) -> bool:
 
 def _prod(xs) -> int:
     return int(math.prod(xs)) if xs else 1
-
-
-def _row_bytes(ctx: _BodyCtx, v: Node) -> int:
-    """Bytes of body value ``v`` per row of the chunked dim."""
-    shape = vshape(v)
-    return _prod(shape) // shape[ctx.var_dim[v]] * _itemsize(vdtype(v))
 
 
 def _leading_reshape(op: BodyOp) -> bool:
@@ -647,8 +636,7 @@ def _try_attention(ctx: _BodyCtx, i_sm: int, mask_mode: str, target: str) -> Opt
         return kv_bytes + out_copies * nb * c * hd * itemsize + mask_bytes * c + ws
 
     return Match(kind="attention", interior=interior, at=i_dg2, root=root, reads=reads,
-                 launch=launch, extra_bytes=extra_bytes,
-                 root_row_bytes=_row_bytes(ctx, root), mask=variant)
+                 launch=launch, extra_bytes=extra_bytes, mask=variant)
 
 
 # ---------------------------------------------------------------------------
@@ -831,8 +819,7 @@ def _try_swiglu(ctx: _BodyCtx, i_dn: int, target: str) -> Optional[Match]:
         return CF.workspace_bytes(c, d, dtype)
 
     return Match(kind="swiglu", interior=interior, at=i_dn, root=root,
-                 reads=(x_v,) + weights, launch=launch, extra_bytes=extra_bytes,
-                 root_row_bytes=_row_bytes(ctx, root))
+                 reads=(x_v,) + weights, launch=launch, extra_bytes=extra_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -912,6 +899,15 @@ def _sync_node_inputs(node: ChunkLoopNode) -> None:
     node.invars = [v for v, _ in sliced] + captured
 
 
+def _skipped(ctx: _BodyCtx, matches: Sequence[Match]) -> Set[int]:
+    """Body positions the matches' kernels replace (their interiors and the
+    nodes that die with them), the roots, where the kernels fire, excluded."""
+    protected = {v for m in matches for v in m.reads} | {m.root for m in matches}
+    at_set = {m.at for m in matches}
+    skip0 = {i for m in matches for i in m.interior if i != m.at}
+    return _dead_after(ctx, skip0 | at_set, protected) - at_set
+
+
 def dispatch_node(node: ChunkLoopNode, g: Optional[Graph] = None, outer=None, *,
                   mask_mode: str = "auto", target: Optional[str] = None) -> int:
     """Try to dispatch one chunk-loop node; returns the number of matches."""
@@ -926,10 +922,8 @@ def dispatch_node(node: ChunkLoopNode, g: Optional[Graph] = None, outer=None, *,
         refresh_node(node)  # drop any dispatch-aware body_peak cap
         stats.bump("kernel_dispatch_misses")
         return 0
-    protected = {v for m in matches for v in m.reads} | {m.root for m in matches}
     at_set = {m.at for m in matches}
-    skip0 = {i for m in matches for i in m.interior if i != m.at}
-    skip_all = _dead_after(ctx, skip0 | at_set, protected) - at_set
+    skip_all = _skipped(ctx, matches)
     c, ext = int(node.params["c"]), int(node.params["chunk_extent"])
     kw = {"c": c, "ext": ext}
     records = []
@@ -993,14 +987,37 @@ def dispatch_graph(g: Graph, *, mask_mode: str = "auto", target: Optional[str] =
 def annotate_candidates(g: Graph, cands: Sequence[ChunkCandidate],
                         mask_mode: str = "auto", target: Optional[str] = None) -> None:
     """Dispatch-aware selection: set ``kernel_bytes`` (the dispatched body's
-    bytes at chunk c) of every candidate whose body matches a fused kernel."""
+    bytes at chunk c) of every candidate whose body matches a fused kernel.
+
+    The bytes are the body-peak model the estimator applies after dispatch:
+    each kernel its root and scratch, and every body value no match
+    replaces (a site the target's kernel refuses, e.g. a generic
+    attention's scores beside a dispatched SwiGLU) at chunk size."""
     outer = _outer_nodes(g)
     for cand in cands:
         if not any(op_name(g.nodes[i]) in _MATCHERS for i in cand.in_loop):
             continue  # nothing the matchers could take
         try:
-            matches = match_body(_ctx_from_candidate(g, cand, outer), mask_mode, target)
+            ctx = _ctx_from_candidate(g, cand, outer)
+            matches = match_body(ctx, mask_mode, target)
         except (LookupError, ValueError, TypeError, IndexError, RuntimeError):
             continue
         if matches:
-            cand.kernel_bytes = lambda c, ms=tuple(matches): sum(m.body_bytes(c) for m in ms)
+            cand.kernel_bytes = _dispatched_bytes(ctx, matches, cand.loop_out)
+
+
+def _dispatched_bytes(ctx: _BodyCtx, matches: Sequence[Match], outvars) -> Callable[[int], int]:
+    """``c -> `` modeled peak of the body with ``matches`` dispatched."""
+    model, memo = [], {}
+
+    def at(c: int) -> int:
+        if not model:
+            model.append(body_peak_model(
+                [op.node for op in ctx.ops], ctx.var_dim, inputs=set(ctx.sliced),
+                outvars=outvars, skip=_skipped(ctx, matches),
+                fire_reads={m.at: m.reads for m in matches}))
+        if c not in memo:
+            memo[c] = model[0](c, {m.at: m.extra_bytes(c) for m in matches})
+        return memo[c]
+
+    return at

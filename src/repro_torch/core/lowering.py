@@ -278,55 +278,75 @@ def _body_peak_bytes(node: ChunkLoopNode) -> int:
     outputs, which the estimation pass adds.
     """
     p = node.params
-    c, var_dim = p["c"], p["var_dim"]
     dispatches = p["dispatches"]
     skip = set().union(*(d.skip for d in dispatches)) if dispatches else set()
-    fire = {d.at: d for d in dispatches}
-    inputs = {v for v, _ in p["sliced"]} | set(p["captured"])
+    peak_at = body_peak_model(
+        [op.node for op in p["body"]], p["var_dim"],
+        inputs={v for v, _ in p["sliced"]} | set(p["captured"]), outvars=node.outvars,
+        skip=skip, fire_reads={d.at: d.reads for d in dispatches})
+    return peak_at(p["c"], {d.at: d.extra_bytes for d in dispatches})
+
+
+def body_peak_model(body: Sequence[Node], var_dim: Dict[Node, int], *, inputs: Set[Node],
+                    outvars: Sequence[Node], skip: Set[int],
+                    fire_reads: Dict[int, Sequence[Node]]
+                    ) -> Callable[[int, Dict[int, int]], int]:
+    """The body-peak model of :func:`_body_peak_bytes` over ``body`` (its
+    values at full extent, chunked dims in ``var_dim``): positions in
+    ``skip`` are replaced by kernels; a kernel fires at each position of
+    ``fire_reads``, reading those values.  Returns ``peak_at(c, extra)``,
+    the peak at chunk ``c`` with ``extra[i]`` bytes allocated by the kernel
+    at position ``i`` beside its root; which values are live at each step
+    does not depend on ``c``, so it is worked out once."""
     root: Dict[Node, Node] = {}
-    for op in p["body"]:
-        src = alias_source(op.node)
-        root[op.node] = root.get(src, src) if src is not None else op.node
+    for v in body:
+        src = alias_source(v)
+        root[v] = root.get(src, src) if src is not None else v
 
     def rt(v):
         return root.get(v, v)
 
-    def nbytes(v) -> int:
+    def size(v) -> Tuple[int, int]:
+        """(bytes at full extent, that extent; 0 if not chunked)."""
         if v in inputs or rt(v) is not v:
-            return 0
-        b = atom_bytes(v)
+            return 0, 0
         d = var_dim.get(v)
         shape = vshape(v)
-        if d is not None and d < len(shape):
-            b = int(b * c / max(shape[d], 1))
-        return b
+        return atom_bytes(v), (max(shape[d], 1) if d is not None and d < len(shape) else 0)
 
-    n = len(p["body"])
+    n = len(body)
+    kept = [i for i in range(n) if i not in skip or i in fire_reads]
     last: Dict[Node, int] = {}
-    for i, op in enumerate(p["body"]):
-        if i in skip and i not in fire:
-            continue
-        reads = fire[i].reads if i in fire else op.node.all_input_nodes
-        for v in reads:
-            last[rt(v)] = i
-    for v in node.outvars:
+    for i in kept:
+        for r in (fire_reads[i] if i in fire_reads else body[i].all_input_nodes):
+            last[rt(r)] = i
+    for v in outvars:
         last[rt(v)] = n
-    live: Set[Node] = set()
-    cur = peak = 0
-    for i, op in enumerate(p["body"]):
-        if i in skip and i not in fire:
-            continue
-        v = op.node
-        b = nbytes(v)
-        extra = fire[i].extra_bytes if i in fire else 0
-        peak = max(peak, cur + b + extra)
-        if b and last.get(v, -1) > i and v not in live:
-            live.add(v)
-            cur += b
-        for r in [r for r in live if last.get(r, -1) <= i]:
-            live.remove(r)
-            cur -= nbytes(r)
-    return peak
+    steps, freed = [], {}
+    for i in kept:
+        v = body[i]
+        sz = size(v)
+        held = sz[0] > 0 and last.get(v, -1) > i     # live past its own step
+        if held:
+            freed.setdefault(last[v], []).append(sz)
+        steps.append((i, sz, held))
+    steps = [(i, sz, held, freed.get(i, ())) for i, sz, held in steps]
+
+    def peak_at(c: int, extra: Dict[int, int]) -> int:
+        def nbytes(sz) -> int:
+            return int(sz[0] * c / sz[1]) if sz[1] else sz[0]
+
+        cur = peak = 0
+        for i, sz, held, gone in steps:
+            b = nbytes(sz)
+            peak = max(peak, cur + b + extra.get(i, 0))
+            if held:
+                cur += b
+            for g in gone:
+                cur -= nbytes(g)
+        return peak
+
+    return peak_at
 
 
 def _meta_value(v: Node, d, c):

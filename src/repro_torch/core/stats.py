@@ -56,6 +56,16 @@ COUNTERS = (
     "mixed_steps",
     "prefill_chunks",
     "admission_refusals",
+    # the prefix-sharing radix cache (serving.prefix_cache): admissions that
+    # matched a cached prompt prefix, the prompt tokens whose prefill they
+    # skipped, boundary pages copy-on-written, and ref-free cached pages
+    # moved to the host arena under pool pressure and brought back on
+    # re-match
+    "prefix_hits",
+    "prefix_tokens_reused",
+    "cow_copies",
+    "pages_spilled",
+    "pages_restored",
 )
 
 _COUNTS: Dict[str, int] = {name: 0 for name in COUNTERS}

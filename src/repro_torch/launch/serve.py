@@ -9,7 +9,16 @@ kernels).  ``--local`` serves ``reduced()`` of the config in float32.
 long requests overlap and steps mix prefill and decode rows; the
 ``[serve] paged:`` line reports the continuous-batching counters.
 
-The fixed-slot engine (serving without ``--paged``) is not in the port yet.
+``--prefix-cache`` turns on the prefix-sharing radix cache and
+``--spill-pages N`` its host spill tier of N pages.  ``--shared-prefix L``
+serves the shared-system-prompt scenario: every request's prompt starts
+with the same L tokens, requests drain one by one, and every third one is
+an uncached filler (``cache_prefix=False``) whose admission presses the
+pool, so cached pages spill and the next shared request restores them.
+The ``[serve] prefix:`` line reports the cache's counters.
+
+The fixed-slot engine (serving without ``--paged``) is not in the port yet
+(ROADMAP queue A item 8b).
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ def serve_paged(cfg, params, rng, args):
         max_seqs=args.max_seqs, max_len=args.max_len,
         page_size=args.page_size, num_pages=args.num_pages,
         autochunk_budget=args.autochunk, prefill_chunk=chunk,
+        prefix_cache=args.prefix_cache, spill_pages=args.spill_pages,
         greedy=not args.sample, seed=args.seed, device=args.device,
     )
     plan = engine.prefill_plan
@@ -47,18 +57,37 @@ def serve_paged(cfg, params, rng, args):
           f" prefill_chunk={engine.prefill_chunk}{plan_note}")
 
     t0 = time.perf_counter()
-    # staggered-length prompts: short decode-bound requests overlap with
-    # long prefill-bound ones, which is what forces mixed steps
-    if args.stagger:
-        cap = max(1, args.max_len - args.max_new)
-        lens = [max(1, min(cap, args.prompt_len * (1 + 3 * (i % 3)) // 2))
-                for i in range(args.requests)]
-    else:
+    if args.shared_prefix > 0:
+        # the shared-system-prompt scenario, drained one request at a time
+        # so each sees the cache insert of the one before; every third
+        # request is an uncached filler that presses the pool
+        n_shared = min(args.shared_prefix, args.prompt_len)
+        shared = rng.integers(0, cfg.vocab_size, n_shared).tolist()
         lens = [args.prompt_len] * args.requests
-    for i, n in enumerate(lens):
-        prompt = rng.integers(0, cfg.vocab_size, n).tolist()
-        engine.submit(Request(rid=i, prompt=prompt, max_new_tokens=args.max_new))
-    done = engine.run()
+        for i in range(args.requests):
+            if i % 3 == 2:
+                prompt = rng.integers(0, cfg.vocab_size, args.prompt_len).tolist()
+                req = Request(rid=i, prompt=prompt, max_new_tokens=args.max_new,
+                              cache_prefix=False)
+            else:
+                tail = rng.integers(0, cfg.vocab_size, args.prompt_len - n_shared).tolist()
+                req = Request(rid=i, prompt=shared + tail, max_new_tokens=args.max_new)
+            engine.submit(req)
+            engine.run()
+        done = engine.finished
+    else:
+        # staggered-length prompts: short decode-bound requests overlap with
+        # long prefill-bound ones, which is what forces mixed steps
+        if args.stagger:
+            cap = max(1, args.max_len - args.max_new)
+            lens = [max(1, min(cap, args.prompt_len * (1 + 3 * (i % 3)) // 2))
+                    for i in range(args.requests)]
+        else:
+            lens = [args.prompt_len] * args.requests
+        for i, n in enumerate(lens):
+            prompt = rng.integers(0, cfg.vocab_size, n).tolist()
+            engine.submit(Request(rid=i, prompt=prompt, max_new_tokens=args.max_new))
+        done = engine.run()
     dt = time.perf_counter() - t0
     toks = sum(len(r.generated) for r in done)
     m = engine.metrics()
@@ -76,6 +105,19 @@ def serve_paged(cfg, params, rng, args):
         f" admission_refusals={d['admission_refusals']}"
         f" padded_kv_waste_bytes={m['kv_pool']['padded_kv_waste_bytes']}"
     )
+    if engine.prefix_cache is not None:
+        pc = m["prefix_cache"]
+        print(
+            "[serve] prefix:"
+            f" prefix_hits={d['prefix_hits']}"
+            f" prefix_tokens_reused={d['prefix_tokens_reused']}"
+            f" cow_copies={d['cow_copies']}"
+            f" pages_spilled={d['pages_spilled']}"
+            f" pages_restored={d['pages_restored']}"
+            f" cached_nodes={pc['nodes']}"
+            f" resident_pages={pc['resident_pages']}"
+            f" spilled_nodes={pc['spilled_nodes']}"
+        )
     print(f"[serve] kv pool: {m['kv_pool']}")
     for r in done[:3]:
         print(f"  req {r.rid}: {r.generated[:8]}...")
@@ -117,10 +159,20 @@ def main(argv=None):
     ap.add_argument("--stagger", action="store_true",
                     help="staggered prompt lengths (request i gets a varied"
                          " length) so prefill and decode overlap")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="enable the prefix-sharing radix cache: matched prompt"
+                         " prefixes share ref-counted pool pages and skip prefill")
+    ap.add_argument("--spill-pages", type=int, default=0,
+                    help="host spill arena capacity in pages; >0 turns"
+                         " out-of-pages admission into retry-after-spill")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="serve the shared-system-prompt scenario with a prefix"
+                         " of this many tokens (requests drain one by one;"
+                         " every third is an uncached filler)")
     args = ap.parse_args(argv)
     if not args.paged:
         sys.exit("the fixed-slot engine is not in the port yet (ROADMAP queue A"
-                 " item 8); pass --paged")
+                 " item 8b); pass --paged")
 
     cfg = get_config(args.arch)
     if args.local:

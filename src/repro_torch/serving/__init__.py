@@ -1,5 +1,8 @@
-"""Paged serving: the KV pool allocator and the continuous-batching engine."""
+"""Paged serving: the KV pool allocator, the prefix cache and the
+continuous-batching engine."""
 from .engine import PagedServeEngine, Request
 from .kv_pool import KVPool, OutOfPagesError
+from .prefix_cache import PrefixCache, PrefixMatch
 
-__all__ = ["KVPool", "OutOfPagesError", "PagedServeEngine", "Request"]
+__all__ = ["KVPool", "OutOfPagesError", "PagedServeEngine", "PrefixCache", "PrefixMatch",
+           "Request"]

@@ -13,11 +13,16 @@ attention kernel at every layer:
   (:func:`~repro_torch.core.estimation.plan_prefill_chunk`): the largest
   power of two whose one-block activation peak fits the budget;
 * KV memory has no padding: a sequence holds ``ceil(len / page_size)``
-  pages.
+  pages;
+* with ``prefix_cache=True`` admission matches the prompt against the
+  radix cache of earlier prompts (:mod:`~repro_torch.serving.prefix_cache`),
+  shares the matched pages and starts prefill at the divergence point;
+  ``spill_pages`` adds the host spill tier, so an admission short of pages
+  spills cached pages and retries.
 
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): the prefix cache and its spill tier, kernel autotuning, the device
-mesh, and the telemetry spans and histograms.
+item): kernel autotuning, the device mesh, and the telemetry spans and
+histograms.
 """
 from __future__ import annotations
 
@@ -42,6 +47,9 @@ class Request:
     prompt: List[int]
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
+    # opt-out of the prefix cache: the request may still match cached
+    # prefixes, but its own prompt is never inserted
+    cache_prefix: bool = True
     generated: List[int] = field(default_factory=list)
     done: bool = False
     # monotonic timestamps (time.perf_counter); ttft_s/latency_s are durations
@@ -101,16 +109,17 @@ class PagedServeEngine:
     ):
         from ..core.estimation import plan_prefill_chunk
         from .kv_pool import KVPool
+        from .prefix_cache import PrefixCache
 
         for name, asked, item in (
-            ("prefix_cache", prefix_cache, "ROADMAP queue A item 8 (PrefixCache)"),
-            ("spill_pages", spill_pages, "ROADMAP queue A item 8 (spill tier)"),
             ("autotune", autotune, "ROADMAP queue A item 7 (autotune)"),
             ("mesh", mesh is not None, "ROADMAP queue A item 11 (mesh)"),
             ("obs", obs, "ROADMAP queue A item 9 (observability)"),
         ):
             if asked:
                 raise NotImplementedError(f"{name} is not in the port yet: {item}")
+        if spill_pages and not prefix_cache:
+            raise ValueError("spill_pages requires prefix_cache=True")
         if cfg.family not in ("dense", "vlm") or cfg.mla or not cfg.causal:
             raise ValueError(
                 "PagedServeEngine serves causal dense/GQA decoders;"
@@ -118,7 +127,7 @@ class PagedServeEngine:
             )
         if cfg.sliding_window is not None and cfg.sliding_window < max_len:
             raise ValueError("paged serving keeps the full context; sliding-window"
-                             " archs need the slot engine (ROADMAP queue A item 8)")
+                             " archs need the slot engine (ROADMAP queue A item 8b)")
         self.device = resolve_device(device)
         why = cuda_refusal(cfg.hd) if self.device.type == "cuda" else None
         if why is not None:
@@ -139,6 +148,10 @@ class PagedServeEngine:
         self.pool = KVPool.for_config(cfg, num_pages=num_pages,
                                       page_size=page_size, device=self.device)
         self.max_pages_per_seq = self.pool.pages_for(max_len)
+        # the radix cache of prompt prefixes over the pool's pages; with
+        # spill_pages > 0 the pool gets its host arena
+        self.prefix_cache = (PrefixCache(self.pool, spill_pages=spill_pages)
+                             if prefix_cache else None)
 
         if prefill_chunk == "auto":
             self.prefill_plan = plan_prefill_chunk(
@@ -163,6 +176,9 @@ class PagedServeEngine:
             "prefill_chunks": 0,
             "decode_tokens": 0,
             "admission_refusals": 0,
+            "prefix_hits": 0,
+            "prefix_tokens_reused": 0,
+            "spill_retries": 0,
         }
 
     # ------------------------------------------------------------------
@@ -216,6 +232,32 @@ class PagedServeEngine:
             )
         self.waiting.append(req)
 
+    def _reserve(self, sid: int, need: int, match) -> None:
+        """One pool reservation, seeded by the prefix match when present.
+
+        On :class:`OutOfPagesError` with the prefix cache on, asks the cache
+        to release the shortfall (spill to the host arena, else drop LRU
+        leaves; the matched pages are protected) and retries once.
+        """
+        from .kv_pool import OutOfPagesError
+
+        kwargs = {}
+        if match is not None and match.matched_tokens > 0:
+            kwargs = dict(shared_pages=match.full_pages, shared_tokens=match.matched_tokens,
+                          boundary_page=match.boundary_page)
+        try:
+            self.pool.reserve(sid, need, **kwargs)
+            return
+        except OutOfPagesError as e:
+            if self.prefix_cache is None:
+                raise
+            shortfall = e.need - e.free
+            protect = match.pages if match is not None else frozenset()
+            self.sched_stats["spill_retries"] += 1
+            if self.prefix_cache.release_pages(shortfall, protect=protect) < shortfall:
+                raise
+        self.pool.reserve(sid, need, **kwargs)
+
     def _admit(self):
         """FIFO admission bounded by pool pages, not batch slots."""
         from .kv_pool import OutOfPagesError
@@ -223,16 +265,28 @@ class PagedServeEngine:
         while self.waiting and len(self.running) < self.max_seqs:
             req = self.waiting[0]
             sid = self._next_seq_id
+            match = (self.prefix_cache.lock_prefix(req.prompt)
+                     if self.prefix_cache is not None else None)
             try:
-                self.pool.reserve(sid, len(req.prompt) + req.max_new_tokens)
+                self._reserve(sid, len(req.prompt) + req.max_new_tokens, match)
             except OutOfPagesError:
-                # head-of-line blocking: wait for pages_freed, keep FIFO order
+                # head-of-line blocking: wait for pages_freed, keep FIFO
+                # order (pages lock_prefix restored stay cached and evictable)
                 self.sched_stats["admission_refusals"] += 1
                 stats.bump("admission_refusals")
                 break
+            matched = match.matched_tokens if match is not None else 0
+            if matched > 0:
+                stats.bump("prefix_hits")
+                stats.bump("prefix_tokens_reused", matched)
+                self.sched_stats["prefix_hits"] += 1
+                self.sched_stats["prefix_tokens_reused"] += matched
             self._next_seq_id += 1
             self.waiting.pop(0)
-            self.running.append(_SeqState(req=req, seq_id=sid))
+            # matched tokens are already in the pool: prefill resumes at the
+            # divergence point
+            self.running.append(_SeqState(req=req, seq_id=sid, prefilled=matched,
+                                          kv_len=matched))
 
     def _retire(self):
         still = []
@@ -307,6 +361,12 @@ class PagedServeEngine:
                 st.prefilled += take
                 st.kv_len += take
                 if not st.in_prefill:
+                    if self.prefix_cache is not None and st.req.cache_prefix:
+                        # the prompt's KV is complete in the pool: cache it
+                        # so the next admission can share it
+                        n_pages = self.pool.pages_for(len(st.req.prompt))
+                        self.prefix_cache.insert(st.req.prompt,
+                                                 self.pool.table(st.seq_id)[:n_pages])
                     need_rows.append((row, st, True))
                 else:
                     stats.bump("prefill_chunks")
@@ -367,6 +427,8 @@ class PagedServeEngine:
             "scheduler": dict(self.sched_stats),
             "kv_pool": self.pool.stats(),
         }
+        if self.prefix_cache is not None:
+            out["prefix_cache"] = self.prefix_cache.stats()
         if self.prefill_plan is not None:
             out["prefill_plan"] = {
                 "chunk": self.prefill_plan.chunk,

@@ -14,10 +14,11 @@ A port of the JAX package's ``serving/kv_pool.py`` allocator:
   worst-case page count up front, so an admitted sequence never runs out of
   pages mid-decode, and the table grows lazily from it (``ensure``);
 * exact internal-fragmentation accounting (the tail of each sequence's last
-  page); there is no padding waste.
-
-The host spill tier of the JAX pool comes with the prefix-cache slice
-(ROADMAP queue A item 8).
+  page); there is no padding waste;
+* a host spill tier (``enable_spill``): ref-free cached pages move to a
+  host arena under pool pressure and come back on re-match.  On a CUDA
+  pool the arena is one pinned tensor, and each spill or restore is one
+  copy of a page at every layer on the current stream.
 """
 from __future__ import annotations
 
@@ -94,6 +95,12 @@ class KVPool:
         self.alloc_events = 0
         self.free_events = 0
         self.cow_events = 0
+        # the host spill tier (enable_spill): a (capacity, n_layers,
+        # page_size, 2*Kv, hd) arena, pinned on a CUDA pool, and its free slots
+        self._host: Optional[torch.Tensor] = None
+        self._host_free: List[int] = []
+        self.spill_events = 0
+        self.restore_events = 0
 
     @property
     def trash_page(self) -> int:
@@ -112,7 +119,14 @@ class KVPool:
     def pages_in_use(self) -> int:
         return self.num_pages - len(self._free)
 
+    def can_reserve(self, n_tokens: int) -> bool:
+        return self.pages_for(n_tokens) <= len(self._free)
+
     # -- refcounts ------------------------------------------------------
+    def refcount(self, page: int) -> int:
+        """Current holder count of a physical page (0 = free or reserved)."""
+        return self._ref.get(page, 0)
+
     def incref(self, page: int) -> None:
         """Register one more holder of an already-allocated page."""
         if page not in self._ref:
@@ -223,13 +237,88 @@ class KVPool:
         stats.bump("pages_freed", len(alloc.reserved))
         return returned + len(alloc.reserved)
 
+    # -- host spill tier -----------------------------------------------
+    def enable_spill(self, capacity: int) -> None:
+        """Allocate the host spill arena of ``capacity`` pages.
+
+        On a CUDA pool the arena is pinned, so a spill or restore is one
+        DMA; a failed pinned allocation raises."""
+        if capacity < 1:
+            raise ValueError("spill capacity must be positive")
+        self._host = torch.zeros(
+            (capacity, self.n_layers, self.page_size, 2 * self.n_kv_heads, self.head_dim),
+            dtype=self.dtype, pin_memory=self.device.type == "cuda")
+        self._host_free = list(range(capacity - 1, -1, -1))
+
+    @property
+    def spill_enabled(self) -> bool:
+        return self._host is not None
+
+    @property
+    def host_capacity(self) -> int:
+        return 0 if self._host is None else self._host.shape[0]
+
+    @property
+    def spilled_pages(self) -> int:
+        return self.host_capacity - len(self._host_free)
+
+    def spill_page(self, page: int) -> int:
+        """Move a sole-holder device page to the host arena; returns the
+        host slot.  The device page returns to the free list (its single
+        ref, the caller's, is consumed)."""
+        if self._host is None:
+            raise RuntimeError("spill tier not enabled (enable_spill)")
+        if self._ref.get(page) != 1:
+            raise ValueError(f"page {page} has refcount {self.refcount(page)};"
+                             " only sole-holder pages may spill")
+        if not self._host_free:
+            raise RuntimeError("host spill arena is full")
+        slot = self._host_free.pop()
+        # pages[:, page] strides over the layers: the copy gathers the page
+        # at every layer into the slot's contiguous block
+        self._host[slot].copy_(self.pages[:, page])
+        self.decref(page)
+        self.spill_events += 1
+        stats.bump("pages_spilled")
+        return slot
+
+    def restore_page(self, slot: int) -> int:
+        """Bring a spilled page back to the device; returns the physical
+        page id (refcount 1, owned by the caller).  Raises
+        :class:`OutOfPagesError` when the free list is empty: the caller
+        decides whether to spill something else first."""
+        if self._host is None:
+            raise RuntimeError("spill tier not enabled (enable_spill)")
+        if slot in self._host_free or not (0 <= slot < self.host_capacity):
+            raise ValueError(f"host slot {slot} holds no spilled page")
+        if not self._free:
+            raise OutOfPagesError(f"restoring spilled host slot {slot}", need=1, free=0,
+                                  in_use=self.pages_in_use, num_pages=self.num_pages)
+        page = self._free.pop()
+        self.pages[:, page].copy_(self._host[slot])
+        self._ref[page] = 1
+        self._host_free.append(slot)
+        self.alloc_events += 1
+        stats.bump("pages_allocated")
+        self.restore_events += 1
+        stats.bump("pages_restored")
+        self.peak_pages_in_use = max(self.peak_pages_in_use, self.pages_in_use)
+        return page
+
+    def drop_spilled(self, slot: int) -> None:
+        """Discard a spilled page (host-arena eviction, no device effect)."""
+        if slot in self._host_free or not (0 <= slot < self.host_capacity):
+            raise ValueError(f"host slot {slot} holds no spilled page")
+        self._host_free.append(slot)
+
     # -- invariants ----------------------------------------------------
     def check_invariants(self) -> None:
         """Assert the allocator's conservation laws (test/debug hook).
 
         Every physical page is in exactly one of: the free list, a
-        sequence's private reservation, or the refcounted set; a page may
-        appear in several tables only while its refcount covers each one.
+        sequence's private reservation, or the refcounted set (tables and
+        external holders such as the prefix cache); a page may appear in
+        several tables only while its refcount covers each one.
         """
         free = set(self._free)
         assert len(free) == len(self._free), "duplicate pages in free list"
@@ -251,10 +340,14 @@ class KVPool:
                 f"page {p} in {n} tables with refcount {self._ref.get(p, 0)}")
         for p, r in self._ref.items():
             assert r > 0, f"page {p} held with nonpositive refcount"
+        assert self.spilled_pages >= 0
 
     # -- views for the kernel ------------------------------------------
     def table(self, seq_id: int) -> List[int]:
         return list(self._seqs[seq_id].table)
+
+    def tokens(self, seq_id: int) -> int:
+        return self._seqs[seq_id].tokens
 
     def table_array(self, seq_ids: List[Optional[int]], max_pages: int) -> torch.Tensor:
         """Dense (len(seq_ids), max_pages) int32 page table on the pool's
@@ -311,6 +404,10 @@ class KVPool:
             "frag_token_slots": self.frag_token_slots(),
             "frag_bytes": self.frag_bytes(),
             "cow_copies": self.cow_events,
+            "spilled_pages": self.spilled_pages,
+            "host_capacity_pages": self.host_capacity,
+            "pages_spilled": self.spill_events,
+            "pages_restored": self.restore_events,
             # paged KV has no padding by construction
             "padded_kv_waste_bytes": 0,
         }

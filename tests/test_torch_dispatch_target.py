@@ -20,7 +20,12 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import ChunkConfig, ChunkedFunction, autochunk, stats
-from repro_torch.core.lowering import is_chunk_loop
+from repro_torch.core import kernel_dispatch as KD
+from repro_torch.core.estimation import estimate_memory
+from repro_torch.core.graph import op_name, trace
+from repro_torch.core.kernel_dispatch import annotate_candidates
+from repro_torch.core.lowering import apply_chunk, is_chunk_loop
+from repro_torch.core.search import search_chunks
 from repro_torch.kernels import chunked_attention as CA
 from repro_torch.kernels import chunked_ffn as CF
 from repro_torch.models import layers as L
@@ -132,6 +137,71 @@ def test_phi3_float32_block_plan_for_the_card_chunks_its_attention():
     assert len(planned.plan.stages) == 1
     assert loops == {"attention": (8, 1024), "swiglu": (8, 1024)}
     assert d["kernel_dispatch_misses"] == 0
+
+
+def test_phi3_float32_block_with_a_refused_head_dim_chunks_its_attention(monkeypatch):
+    """ROADMAP C-4: with hd 96 refused by the card's attention kernel, the
+    f32 phi3-mini block (full width, S 8192, budget 0.03, planned on ``meta``
+    for the card) still gets a stage whose chunk loop holds the attention as
+    a generic loop, as the bf16 search does; the SwiGLU site in the same
+    loop dispatches (a loop with a match counts a hit, not a miss).
+    Before the repair, the kernel bytes of the dispatched SwiGLU alone capped
+    the estimate of a body that also held the generic attention's scores,
+    so the search stopped after one stage at 2,625,679,364 B against a
+    520,429,240 B budget."""
+    refusal = CA.cuda_refusal
+    monkeypatch.setattr(CA, "cuda_refusal",
+                        lambda hd, *a, **k: "hd 96 refused" if hd == 96 else refusal(hd, *a, **k))
+    cfg = get_config("phi3-mini-3.8b").with_(dtype="float32", n_layers=1, scan_layers=False)
+    p = M._index_tree(M.init_params(cfg, device="meta")["blocks"][0])
+    x = torch.empty((1, 8192, cfg.d_model), device="meta")
+    cf = ChunkedFunction(lambda p, x: M.dense_block_full(cfg, p, x, window=None, causal=True),
+                         ChunkConfig.from_scalar(0.03, weight_argnums=(0,), dim_blocklist=(0,),
+                                                 kernel_target="cuda", kernel_dispatch="on"))
+    before = stats.snapshot()
+    planned = cf.trace(p, x).search()
+    d = stats.delta(before)
+    loops = [n for n in planned.graph.nodes if is_chunk_loop(n)]
+    assert any("softmax" in str(op.node.target) for n in loops for op in n.params["body"])
+    assert [k.kind for n in loops for k in n.params["dispatches"]] == ["swiglu"]
+    assert (d["kernel_dispatch_hits"], d["kernel_dispatch_misses"]) == (1, 0)
+    assert planned.plan.final_peak < 2_625_679_364
+    assert planned.plan.final_peak <= planned.plan.budget_bytes
+
+
+def test_phi3_float32_block_with_a_refused_swiglu_charges_its_generic_ffn(monkeypatch):
+    """C-4's mirror: the phi3-mini f32 block (full width, S 8192, on
+    ``meta``) with the attention dispatched and the SwiGLU refused by the
+    card's FFN kernel.  Selection charges a candidate holding both sites
+    the peak the estimator gives its body after dispatch, which counts the
+    refused SwiGLU's chunk-sized ``x @ w_in`` product as well as the
+    attention kernel's bytes (before, the kernel's bytes alone)."""
+    monkeypatch.setattr(CF, "cuda_refusal", lambda *a, **k: "refused")
+    cfg = get_config("phi3-mini-3.8b").with_(dtype="float32", n_layers=1, scan_layers=False)
+    p = M._index_tree(M.init_params(cfg, device="meta")["blocks"][0])
+    x = torch.empty((1, 8192, cfg.d_model), device="meta")
+    g, _ = trace(lambda p, x: M.dense_block_full(cfg, p, x, window=None, causal=True), [p, x],
+                 weight_argnums=(0,))
+    prof = estimate_memory(g)
+    cands = search_chunks(g, prof, peak_node=prof.peak_node, dim_blocklist=frozenset({0}))
+    annotate_candidates(g, cands, target="cuda")
+    both = [c for c in cands if c.kernel_bytes is not None
+            and {"_softmax", "silu"} <= {op_name(g.nodes[i]) for i in c.in_loop}]
+    assert both, "no candidate holds the attention and the SwiGLU"
+    # 2 chunks of 4096 rows: the generic FFN's products outweigh the
+    # attention kernel's bytes (its full-length K and V operands included)
+    n, c_rows = 2, 4096
+    for cand in both:
+        ctx = KD._ctx_from_candidate(g, cand, KD._outer_nodes(g))
+        matches = KD.match_body(ctx, target="cuda")
+        assert [m.kind for m in matches] == ["attention"]
+        # x @ w_in and silu(gate) live together, f32 (the attention kernel's
+        # root and operands come to 301,989,888 B here)
+        assert cand.kernel_bytes(c_rows) >= c_rows * (2 + 1) * cfg.d_ff * 4
+        g2 = apply_chunk(g, cand, n)
+        node = next(nd for nd in g2.nodes if is_chunk_loop(nd))
+        assert KD.dispatch_node(node, g2, target="cuda") == 1
+        assert cand.kernel_bytes(c_rows) == node.params["body_peak"]
 
 
 def _swiglu(w, x):

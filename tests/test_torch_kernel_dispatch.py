@@ -34,8 +34,8 @@ from repro.models import layers as JL
 from repro_torch.core import ChunkConfig, autochunk, stats
 from repro_torch.core.estimation import estimate_memory
 from repro_torch.core.graph import op_name, trace
-from repro_torch.core.kernel_dispatch import annotate_candidates
-from repro_torch.core.lowering import is_chunk_loop
+from repro_torch.core.kernel_dispatch import annotate_candidates, dispatch_node
+from repro_torch.core.lowering import apply_chunk, is_chunk_loop
 from repro_torch.core.search import search_chunks
 from repro_torch.kernels import chunked_attention as CA
 from repro_torch.kernels import chunked_ffn as CF
@@ -355,9 +355,11 @@ def test_swiglu_dispatch_split_weights_odd_seq(ffn_calls):
 
 
 def test_annotate_charges_swiglu_kernel_bytes():
-    """A candidate holding the whole SwiGLU is charged the kernel's output
-    per chunk row (f32: no workspace), not the (c, 2f) gate/up slice the
-    generic body would hold."""
+    """A candidate holding the whole SwiGLU is charged its dispatched body
+    as the estimator models it after dispatch (the chunk loop's
+    ``body_peak``): where the loop's output is the kernel's root, the
+    kernel's output per chunk row (f32: no workspace), not the (c, 2f)
+    gate/up slice the generic body would hold."""
     d, f, S = 32, 256, 48
     _, w = _swiglu_weights(d, f, seed=2)
     x = torch.zeros((1, S, d))
@@ -367,17 +369,25 @@ def test_annotate_charges_swiglu_kernel_bytes():
     annotate_candidates(g, cands)
     whole = [c for c in cands if c.kernel_bytes is not None]
     assert whole, "no candidate holds the whole SwiGLU"
+    at_root = [c for c in whole if [op_name(v) for v in c.loop_out] == ["mm"]]
+    assert at_root, "no candidate ends at the kernel's root"
     for c in whole:
         n = 4
         ext = -(-c.chunk_extent // n)
-        assert c.chunked_body_peak(n) == c.kernel_bytes(ext) == ext * d * 4
+        g2 = apply_chunk(g, c, n)
+        node = next(nd for nd in g2.nodes if is_chunk_loop(nd))
+        assert dispatch_node(node, g2) == 1
+        assert c.chunked_body_peak(n) == c.kernel_bytes(ext) == node.params["body_peak"]
         assert c.kernel_bytes(ext) < ext * 2 * f * 4     # the gate/up slice
+        if c in at_root:
+            assert c.kernel_bytes(ext) == ext * d * 4
     # bf16: the f32 accumulator rides on top of the output
     gb, _ = trace(_swiglu_fused, [{k: v.bfloat16() for k, v in w.items()}, x.bfloat16()],
                   weight_argnums=(0,))
     cb = search_chunks(gb, estimate_memory(gb))
     annotate_candidates(gb, cb)
-    kb = [c for c in cb if c.kernel_bytes is not None]
+    kb = [c for c in cb if c.kernel_bytes is not None
+          and [op_name(v) for v in c.loop_out] == ["mm"]]
     assert kb and all(c.kernel_bytes(r) == r * (d * 2 + d * 4) for c in kb for r in (1, 17))
 
 

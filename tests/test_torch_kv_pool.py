@@ -2,10 +2,11 @@
 
 The seeded random allocator programs of ``tests/test_kv_pool.py`` (plain
 and shared reservations with copy-on-write boundaries, lazy table growth,
-frees, external holds), without the spill tier, which the port leaves to
-the prefix-cache slice.  Both pools run the same program in lock step and
-must agree exactly after every op: page tables, reservations, free lists,
-refcounts, ``stats()`` and the pool's contents.
+frees, external holds, and the host spill tier's spill, restore and drop).
+Both pools run the same program in lock step and must agree exactly after
+every op: page tables, reservations, token counts, ``can_reserve``, free
+lists, refcounts, host slots, ``stats()``, the pool's contents and the host
+arena's.
 """
 import random
 
@@ -29,6 +30,8 @@ def _pools(seed):
     """A port pool and a JAX pool holding the same random contents."""
     jp = JaxPool(**SHAPE)
     tp = KVPool(**SHAPE, device="cpu")
+    jp.enable_spill(3)
+    tp.enable_spill(3)
     data = np.random.default_rng(seed).standard_normal(tuple(tp.pages.shape))
     jp.pages = jnp.asarray(data, jnp.float32)
     tp.pages.copy_(torch.tensor(data, dtype=torch.float32))
@@ -37,7 +40,8 @@ def _pools(seed):
 
 def _state(p):
     seqs = {sid: (list(a.reserved), list(a.table), a.tokens) for sid, a in p._seqs.items()}
-    return (list(p._free), dict(p._ref), seqs, p.peak_pages_in_use, p.cow_events)
+    return (list(p._free), dict(p._ref), seqs, p.peak_pages_in_use, p.cow_events,
+            list(p._host_free), p.spill_events, p.restore_events)
 
 
 def _both(tp, jp, fn):
@@ -55,22 +59,28 @@ def _both(tp, jp, fn):
 
 def _check_same(tp, jp):
     assert _state(tp) == _state(jp)
-    ours, theirs = tp.stats(), jp.stats()
-    assert ours == {k: theirs[k] for k in ours}
-    assert theirs["spilled_pages"] == theirs["pages_spilled"] == 0
+    assert tp.stats() == jp.stats()
+    assert [tp.tokens(s) for s in tp._seqs] == [jp.tokens(s) for s in tp._seqs]
+    assert ([tp.can_reserve(n) for n in range(0, 40, 3)]
+            == [jp.can_reserve(n) for n in range(0, 40, 3)])
+    np.testing.assert_array_equal(tp._host.numpy(), jp._host)
     tp.check_invariants()
     jp.check_invariants()
 
 
 @pytest.mark.parametrize("seed", range(8))
-def test_allocator_program_matches_jax(seed, n_ops=60):
+def test_allocator_program_matches_jax(seed, n_ops=200):
+    # 200 ops, so that a page held only externally (the cache's sole ref)
+    # comes up often enough for spills, restores and drops
     rnd = random.Random(seed)
     tp, jp = _pools(seed)
     live = {}        # seq_id -> reserved token budget
     holds = []       # external page refs (the prefix cache's stand-in)
+    spilled = []     # host slots
     next_sid = 0
     for _ in range(n_ops):
-        op = rnd.choice(["reserve", "reserve_shared", "ensure", "free", "hold", "unhold"])
+        op = rnd.choice(["reserve", "reserve_shared", "ensure", "free", "hold", "unhold",
+                         "spill", "restore", "drop"])
         free_before = tp.free_pages
         if op == "reserve":
             n = rnd.randint(1, 20)
@@ -113,6 +123,28 @@ def test_allocator_program_matches_jax(seed, n_ops=60):
         elif op == "unhold" and holds:
             pg = holds.pop(rnd.randrange(len(holds)))
             assert tp.decref(pg) == jp.decref(pg)
+        elif op == "spill":
+            sole = [pg for pg in dict.fromkeys(holds)
+                    if tp.refcount(pg) == 1 and holds.count(pg) == 1]
+            if sole and tp.spilled_pages < tp.host_capacity:
+                pg = rnd.choice(sole)
+                holds.remove(pg)
+                slot = tp.spill_page(pg)
+                assert jp.spill_page(pg) == slot
+                spilled.append(slot)
+        elif op == "restore" and spilled:
+            slot = rnd.choice(spilled)
+            got = []
+            if _both(tp, jp, lambda p: got.append(p.restore_page(slot))):
+                assert tp.free_pages == free_before
+            else:
+                assert got[0] == got[1]     # both restored onto one page id
+                holds.append(got[0])
+                spilled.remove(slot)
+        elif op == "drop" and spilled:
+            slot = spilled.pop(rnd.randrange(len(spilled)))
+            tp.drop_spilled(slot)
+            jp.drop_spilled(slot)
         _check_same(tp, jp)
         ids = list(live) + [None]
         np.testing.assert_array_equal(tp.table_array(ids, 6).numpy(),
@@ -127,8 +159,17 @@ def test_allocator_program_matches_jax(seed, n_ops=60):
         pg = holds.pop()
         tp.decref(pg)
         jp.decref(pg)
+    for i, slot in enumerate(spilled):
+        if i % 2 == 0:      # restore, then release
+            pg = tp.restore_page(slot)
+            assert jp.restore_page(slot) == pg
+            tp.decref(pg)
+            jp.decref(pg)
+        else:               # host-side discard
+            tp.drop_spilled(slot)
+            jp.drop_spilled(slot)
     _check_same(tp, jp)
-    assert tp.free_pages == tp.num_pages
+    assert tp.free_pages == tp.num_pages and tp.spilled_pages == 0
     assert tp.alloc_events == tp.free_events
 
 

@@ -133,7 +133,7 @@ def test_planned_chunk_sampling_and_options(models):
         e = PagedServeEngine(cfg, params, device="cpu", greedy=False, seed=3, **ENGINE)
         runs.append(_serve(e, Request, PROMPTS[:2], together=True))
     assert runs[0] == runs[1]
-    for kw in (dict(prefix_cache=True), dict(autotune=True), dict(obs=True),
+    for kw in (dict(autotune=True), dict(obs=True),
                dict(mesh="data:1")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PagedServeEngine(cfg, params, device="cpu", **ENGINE, **kw)
