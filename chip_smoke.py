@@ -10,8 +10,8 @@ registers, shared memory and spills (``-Xptxas -v``) and, from
 (``[route]`` lines; the bf16 attention kernel, computed and masked, and
 the bf16 FFN kernel must have HGMMA, the bf16 SSD kernel HMMA or HGMMA,
 their f32 kernels, the mask's tile pre-pass and the RG-LRU kernels none),
-and drives the port's paths, three at
-gpt-paper's full width, one at minitron-4b's, three at phi3-mini-3.8b's,
+and drives the port's paths, four at
+gpt-paper's full width, one at minitron-4b's, four at phi3-mini-3.8b's,
 one at mamba2-1.3b's and two at recurrentgemma-9b's:
 
 * serving: the paged engine, its kernel held against its plain version at
@@ -72,8 +72,23 @@ one at mamba2-1.3b's and two at recurrentgemma-9b's:
   the fused and the separate weights;
 * phi3-mini-3.8b per block (2 layers, full width, S 8192, budget 0.03):
   its attention (hd 96) on ``computed_attention`` and its SwiGLU MLP on
-  ``chunked_ffn``, the chunked block's peak within 5% of its prediction,
-  float32 per-block logits within 1e-3 of the unchunked ones;
+  ``chunked_ffn``, the chunked block's peak within 5% of its prediction and
+  its predicted peak within the budget, float32 per-block logits within
+  1e-3 of the unchunked ones;
+* the fixed-slot engine (``ServeEngine``) at phi3-mini's full width and
+  depth, bf16: two 8128-token prompts decoding 128 tokens each past
+  position 8192 through ring caches of the 8192-token window, and a
+  1000-token request admitted into a freed slot; each prefill per block
+  under budget 0.03 (its attention kernel and ``chunked_ffn`` launched 32 x
+  the plan's chunks), the block plans' layer-0 peaks within 5% of their
+  predictions, the attention kernel against its plain version on layer 0's
+  own inputs of both prompt lengths, TTFT and tok/s, the requests again with
+  the plain versions swapped in, the decode wave compiled at budget 0.5
+  against the plain wave (bf16 ``TOL``) and reconfigured inside its bucket
+  (1 bucket hit, no trace, no search), float32 logits at 4 layers within
+  1e-3 of the windowed forward at the first wave, the wave that writes
+  position 8192 and the last, and the serving CLI without ``--paged`` at
+  gpt-paper's width (its second run reuses the warm wave);
 * the SSM family: mamba2-1.3b's 48-layer bf16 forward of 8192 tokens, each
   block's scan on ``ssd_scan``, unchunked and per block with
   ``autochunk_budget=0.9`` (the scan stays one kernel op in the compiled
@@ -1749,14 +1764,17 @@ def run_phi3_forward(torch, CA, CF, stats, M, card):
             _, bpeak0, _ = measure_forward(torch, block, (p0, h0))
             _, bpeak1, _ = measure_forward(torch, cf, (p0, h0))
         attn, swiglu = loops.get("attention", (0, 0)), loops.get("swiglu", (0, 0))
+        # the attention loop slices query rows (16 x 512) or heads (8 x 4)
+        by = "rows" if attn[0] * attn[1] >= S else "heads"
         print(f"[forward] phi3-mini-3.8b per-block {dt_name} L={L} S={S} budget"
               f" {PHI3['budget']}: {secs:.2f}s with the block compile, {ms1:.2f} ms replayed;"
               f" {len(r.plan)} stages; dispatch hits {d['kernel_dispatch_hits']}, misses"
               f" {d['kernel_dispatch_misses']}; computed_attention launches {n_attn} = {L} layers"
-              f" x {attn[1]} chunks of {attn[0]} rows (hd {c.hd}), chunked_ffn launches {n_ffn} ="
+              f" x {attn[1]} chunks of {attn[0]} {by} (hd {c.hd}), chunked_ffn launches {n_ffn} ="
               f" {L} layers x {swiglu[1]} chunks of {swiglu[0]} rows; layer 0 activation peak"
               f" unchunked {bpeak0} B (predicted {r.baseline_peak} B), chunked {bpeak1} B"
-              f" (predicted {r.final_peak} B, {bpeak1 / r.final_peak:.4f}x); per-block vs"
+              f" (predicted {r.final_peak} B, {bpeak1 / r.final_peak:.4f}x; budget"
+              f" {r.budget_bytes} B); per-block vs"
               f" unchunked logits max_abs_err {err:.3e}"
               f"{' (limit 1e-3)' if dt_name == 'float32' else ''}; {card}")
         check(d["kernel_dispatch_hits"] == 2 and d["kernel_dispatch_misses"] == 0,
@@ -1771,17 +1789,389 @@ def run_phi3_forward(torch, CA, CF, stats, M, card):
         check(abs(bpeak1 - r.final_peak) <= 0.05 * r.final_peak,
               f"phi3 {dt_name}: chunked block peak {bpeak1} B is not within 5% of the"
               f" predicted {r.final_peak} B")
+        # ROADMAP C-5: the f32 plan ended above its budget before K and V
+        # were copied once before the attention loop
+        check(r.final_peak <= r.budget_bytes,
+              f"phi3 {dt_name}: predicted block peak {r.final_peak} B above the budget"
+              f" {r.budget_bytes} B")
         if dt_name == "float32":
             check(err <= 1e-3, f"phi3 fp32 per-block logits differ by {err}")
         out[dt_name] = dict(launches=n_ffn, attention_launches=n_attn, swiglu_chunk=swiglu[0],
                             attention_chunk=attn[0], attention_chunks=attn[1],
+                            attention_by=by,
                             stages=len(r.plan), logits_err=err, seconds=secs, ms=ms1,
                             pred_block0=r.baseline_peak, pred_block1=r.final_peak,
+                            budget_bytes=r.budget_bytes,
                             block_peak0=bpeak0, block_peak1=bpeak1)
         del model, cf, p0, h0
         M._AC_CACHE.clear()
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# The fixed-slot engine: phi3-mini-3.8b served past its 8192-token window
+# ---------------------------------------------------------------------------
+
+SLOT = dict(arch="phi3-mini-3.8b", max_batch=2, max_len=8320,
+            # the largest of 0.1, 0.05 and 0.03 whose block plan at S 8128
+            # dispatches both the attention and the SwiGLU site (a CPU plan
+            # on meta for the card: 0.1 and 0.05 chunk the attention over
+            # heads and leave the MLP whole)
+            budget=0.03,
+            # two prompts decoding across position 8192 (the ring's first
+            # wrap at wave 64), a third admitted into a freed slot
+            prompts=(8128, 8128, 1000), max_new=(128, 128, 32),
+            fp32_layers=4, wave_budget=0.5, second_max_len=9000, wave_reps=10,
+            cli=["--arch", "gpt-paper", "--max-batch", "4", "--max-len", "2048",
+                 "--prompt-len", "1024", "--max-new", "32", "--autochunk", "0.5",
+                 "--second-max-len", "1500", "--device", "cuda"])
+
+
+def slot_requests(Request, vocab, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, n).tolist(), max_new_tokens=m)
+            for i, (n, m) in enumerate(zip(SLOT["prompts"], SLOT["max_new"]))]
+
+
+def swap_plain(CA, CF):
+    """Put the plain versions where dispatched loops call the kernels;
+    returns the function that puts the kernels back."""
+    saved = (CA.computed_attention, CA.masked_attention, CF.chunked_ffn)
+    CA.computed_attention = CA.computed_attention_plain
+    CA.masked_attention = CA.masked_attention_plain
+    CF.chunked_ffn = lambda x, wg, wu, wd, **kw: CF.chunked_ffn_plain(x, wg, wu, wd)
+
+    def restore():
+        CA.computed_attention, CA.masked_attention, CF.chunked_ffn = saved
+    return restore
+
+
+def slot_block_plans(torch, CA, M, cfg, model, prompts, errs):
+    """The per-block plan the prefills ran at each prompt length (``prompts``:
+    length -> a prompt the engine served): stages, loops, layer 0's
+    predicted against measured peak (within 5%), and the attention kernel
+    held against its plain version on layer 0's own inputs of that prompt
+    (``TOL``)."""
+    (cf,) = M._AC_CACHE.values()
+    p0 = M._index_tree(model["blocks"], 0)
+    out = {}
+    for S, prompt in prompts.items():
+        tokens = torch.tensor([prompt], device="cuda")
+        h0 = M.embed_inputs(cfg, model, {"tokens": tokens})[0]
+        planned = cf.trace(p0, h0).search()
+        loops = block_loops(planned)
+        with torch.no_grad():
+            cf(p0, h0)
+            _, peak, ms = measure_forward(torch, cf, (p0, h0))
+        pred = planned.final_peak
+        comp = []
+        masked = capture_calls(torch, CA, "masked_attention", lambda: comp.extend(
+            capture_calls(torch, CA, "computed_attention", lambda: cf(p0, h0))))
+        calls = {"computed_attention": comp, "masked_attention": masked}
+        n_calls = {k: len(v) for k, v in calls.items()}
+        for kname, kcalls in calls.items():
+            plain = getattr(CA, f"{kname}_plain")
+            kernel = getattr(CA, kname)
+            for i, (args, kw) in enumerate(kcalls):
+                dt_name = str(args[0].dtype).removeprefix("torch.")
+                err = hold(torch, kname, f"slot prefill S={S} layer 0 call {i} {dt_name}"
+                           f" Sq={args[0].shape[1]} Skv={args[1].shape[1]} H={args[0].shape[0]}"
+                           f" Kv={args[1].shape[0]} hd={args[0].shape[2]}",
+                           lambda: kernel(*args, **kw), lambda: plain(*args, **kw),
+                           TOL[dt_name])
+                errs[(kname, dt_name)] = max(errs.get((kname, dt_name), 0.0), err)
+        attn, swiglu = loops.get("attention", (0, 0)), loops.get("swiglu", (0, 0))
+        print(f"[slot] block plan S={S} budget {SLOT['budget']}: {len(planned.plan.stages)}"
+              f" stages, dispatched loops {loops}; layer 0 activation peak {peak} B against"
+              f" predicted {pred} B ({peak / pred:.4f}x), budget {planned.budget_bytes} B;"
+              f" {ms:.2f} ms; layer-0 kernel calls {n_calls}")
+        check(abs(peak - pred) <= 0.05 * pred,
+              f"slot block S={S}: peak {peak} B not within 5% of the predicted {pred} B")
+        check(sum(n_calls.values()) == attn[1] > 0,
+              f"slot block S={S}: attention calls {n_calls}, plan {attn}")
+        out[S] = dict(stages=len(planned.plan.stages), attention=list(attn),
+                      swiglu=list(swiglu), pred_peak=pred, peak=peak, ms=ms,
+                      budget_bytes=planned.budget_bytes, kernel_calls=n_calls)
+        del h0, calls
+    return out
+
+
+def slot_fp32_logits(torch, M, ServeEngine, Request, card):
+    """phi3-mini at ``fp32_layers`` layers in float32, the same requests:
+    rid 0's logits at the first decode wave, the wave that writes position
+    8192 (the ring's first wrap) and the last, against the unchunked
+    ``forward(..., window=8192)`` over its sequence so far (limit 1e-3)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SLOT["arch"]).with_(dtype="float32", n_layers=SLOT["fp32_layers"])
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(14), device="cuda")
+    M._AC_CACHE.clear()
+    engine = ServeEngine(cfg.with_(autochunk_budget=SLOT["budget"]), model,
+                         max_batch=SLOT["max_batch"], max_len=SLOT["max_len"], device="cuda")
+    S0, n0 = SLOT["prompts"][0], SLOT["max_new"][0]
+    waves = {"first": 0, "wrap": cfg.sliding_window - S0, "last": n0 - 2}
+    kept = {}
+    wave = engine._decode_wave
+
+    def spy(cache, toks, pos):
+        logits = wave(cache, toks, pos)
+        w = engine.n_decode_steps
+        for name, at in waves.items():
+            if w == at:
+                kept[name] = (int(pos[0]), logits[0].float().clone())
+        return logits
+
+    engine._decode_wave = spy
+    reqs = slot_requests(Request, cfg.vocab_size, 14)
+    for r in reqs:
+        engine.submit(r)
+    engine.run()
+    check(all(r.done and len(r.generated) == m for r, m in zip(reqs, SLOT["max_new"])),
+          "fp32 slot serving: a request did not finish")
+    # the wave compiled at SLOT's wave budget against the plain one, on the
+    # same cache, tokens and positions (float32 limit of TOL)
+    e2 = ServeEngine(cfg, model, max_batch=SLOT["max_batch"], max_len=SLOT["max_len"],
+                     autochunk_budget=SLOT["wave_budget"], device="cuda")
+    for full, mine in zip(torch.utils._pytree.tree_leaves(e2.cache),
+                          torch.utils._pytree.tree_leaves(engine.cache)):
+        full.copy_(mine)
+    toks_w = torch.tensor([reqs[2].generated[-1], reqs[1].generated[-1]], device="cuda")
+    pos_w = torch.tensor([len(reqs[2].prompt) + len(reqs[2].generated),
+                          len(reqs[1].prompt) + len(reqs[1].generated)], device="cuda")
+    with torch.no_grad():
+        want = wave(engine.cache, toks_w, pos_w)[:, :cfg.vocab_size]
+        got = e2._decode_wave(e2.cache, toks_w, pos_w)[:, :cfg.vocab_size]
+    wave_err = compare(torch, "decode wave", f"fp32 L={cfg.n_layers} compiled (budget"
+                       f" {SLOT['wave_budget']}, {len(e2.autochunk_result.plan)} stages)"
+                       " against plain", got, want, TOL["float32"])
+    leaves = zip(torch.utils._pytree.tree_leaves(e2.cache),
+                 torch.utils._pytree.tree_leaves(engine.cache))
+    cache_err = max(float((a - b).abs().max()) for a, b in leaves)
+    print(f"[slot] fp32 caches after the two waves: max_abs_err {cache_err:.3e} (limit 1e-4)")
+    check(cache_err <= 1e-4, f"the compiled wave wrote another cache: {cache_err}")
+    del e2
+    check(kept["wrap"][0] == cfg.sliding_window, f"the wrap wave was at {kept['wrap'][0]}")
+    seq = reqs[0].prompt + reqs[0].generated
+    errs = {}
+    with torch.no_grad():
+        for name, (pos, got) in kept.items():
+            toks = torch.tensor([seq[:pos + 1]], device="cuda")
+            want = M.forward(cfg, model, {"tokens": toks}, window=cfg.sliding_window)[0][0, -1]
+            errs[name] = float((got[:cfg.vocab_size] - want[:cfg.vocab_size].float())
+                               .abs().max())
+            del want
+            torch.cuda.empty_cache()
+    print(f"[slot] fp32 L={cfg.n_layers}: rid 0 decode logits against forward(window="
+          f"{cfg.sliding_window}) over the sequence so far: "
+          + ", ".join(f"{k} wave (position {kept[k][0]}) {v:.3e}" for k, v in errs.items())
+          + f" (limit 1e-3); {card}")
+    check(max(errs.values()) <= 1e-3, f"fp32 slot logits differ from the forward: {errs}")
+    M._AC_CACHE.clear()
+    del engine, model
+    torch.cuda.empty_cache()
+    return ({f"{k}_position": kept[k][0] for k in kept} | {f"{k}_err": v for k, v in errs.items()}
+            | {"compiled_wave_err": wave_err, "compiled_wave_cache_err": cache_err})
+
+
+def slot_cli(torch):
+    """``serve.main`` without ``--paged`` on the card (gpt-paper, full width):
+    the fixed-slot engine with its wave compiled, then reconfigured inside
+    the same bucket: ``bucket_exec_hits=1 new_traces=0 new_searches=0
+    new_wave_compiles=0``."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(SLOT["cli"])
+    lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("[serve]")]
+    for ln in lines:
+        print(f"[slot] CLI gpt-paper: {ln}")
+    want = "[serve] second run: bucket_exec_hits=1 new_traces=0 new_searches=0 new_wave_compiles=0"
+    check(want in lines, "the serving CLI's second run reused no warm wave")
+    torch.cuda.empty_cache()
+    return [ln for ln in lines if "requests" in ln or "second run:" in ln]
+
+
+def run_slot_phase(torch, CA, CF, stats, M, flush, card):
+    """The fixed-slot engine at phi3-mini's full width and depth, bf16, its
+    prefill per block under SLOT's budget (attention on ``computed_attention``
+    or, for a head-chunked plan, ``masked_attention``; SwiGLU on
+    ``chunked_ffn``): two 8128-token prompts decoding past position 8192
+    and a third request in a freed slot, with the launch counts zeroed just
+    before serving and read just after; the block plans and peaks; the
+    kernels on layer 0's own inputs; the plain versions swapped in; the
+    compiled wave against the plain one and reconfigured inside its bucket;
+    fp32 logits at 4 layers against the windowed forward; the CLI."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = get_config(SLOT["arch"])                       # bf16, 32 layers, window 8192
+    cfg_ac = cfg.with_(autochunk_budget=SLOT["budget"])
+    L = cfg.n_layers
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(13), device="cuda")
+    M._AC_CACHE.clear()
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg_ac, model, max_batch=SLOT["max_batch"], max_len=SLOT["max_len"],
+                         device="cuda")
+    build_s = time.perf_counter() - t0
+    width = M.cache_width(cfg, engine.exec_len)
+    cache_bytes = sum(t.numel() * t.element_size() for t in
+                      torch.utils._pytree.tree_leaves(engine.cache))
+    print(f"[slot] phi3-mini-3.8b engine built in {build_s:.2f}s: {SLOT['max_batch']} slots,"
+          f" max_len {SLOT['max_len']}, exec_len {engine.exec_len}, ring width {width},"
+          f" cache {cache_bytes} B")
+    check(engine.exec_len == 16384 and width == cfg.sliding_window
+          and cache_bytes == SLOT["max_batch"] * L * 2 * width * cfg.n_kv_heads * cfg.hd * 2,
+          f"slot cache: exec_len {engine.exec_len}, width {width}, {cache_bytes} B")
+
+    reqs = slot_requests(Request, cfg.vocab_size, 13)
+    torch.cuda.synchronize()
+    CA.computed_attention.launches = CA.masked_attention.launches = 0
+    CF.chunked_ffn.launches = 0
+    before = stats.snapshot()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_comp, n_mask = CA.computed_attention.launches, CA.masked_attention.launches
+    n_ffn = CF.chunked_ffn.launches
+    d = stats.delta(before)
+    toks = sum(len(r.generated) for r in reqs)
+    check(all(r.done and len(r.generated) == m for r, m in zip(reqs, SLOT["max_new"])),
+          "slot serving: a request did not finish with its new tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          "slot serving: a token outside the vocabulary")
+    waves = engine.n_decode_steps
+    check(waves == SLOT["max_new"][0] - 1 + SLOT["max_new"][2] - 1,
+          f"slot serving: {waves} decode waves")
+    ttft = {r.rid: r.ttft_s for r in reqs}
+    print(f"[slot] served {len(reqs)} requests (prompts {SLOT['prompts']}, new"
+          f" {SLOT['max_new']}) on {SLOT['max_batch']} slots: {toks} tokens in {wall:.3f}s ="
+          f" {toks / wall:.1f} tok/s, {waves} decode waves; TTFT"
+          f" {', '.join(f'rid {k} {v:.3f}s' for k, v in ttft.items())}; block compiles"
+          f" {d['search_passes']} searches; {card}")
+
+    # layer 0's own inputs: the prompts the engine served (rid 0, rid 2)
+    errs = {}
+    first = {}
+    for r in reqs:
+        first.setdefault(len(r.prompt), r.prompt)
+    plans = slot_block_plans(torch, CA, M, cfg, model, first, errs)
+    want_attn = sum(L * plans[len(r.prompt)]["attention"][1] for r in reqs)
+    want_ffn = sum(L * plans[len(r.prompt)]["swiglu"][1] for r in reqs)
+    print(f"[slot] launches while serving: computed_attention {n_comp}, masked_attention"
+          f" {n_mask} (together {n_comp + n_mask} = sum over the 3 prefills of {L} layers x"
+          f" attention chunks = {want_attn}), chunked_ffn {n_ffn} (= {want_ffn})")
+    check(n_comp + n_mask == want_attn > 0 and n_ffn == want_ffn > 0,
+          f"slot launches: attention {n_comp}+{n_mask} want {want_attn}, ffn {n_ffn} want"
+          f" {want_ffn}")
+
+    # the same requests with the plain versions swapped in (information)
+    plain_reqs = [Request(rid=100 + r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+                  for r in reqs]
+    restore = swap_plain(CA, CF)
+    try:
+        for r in plain_reqs:
+            engine.submit(r)
+        engine.run()
+    finally:
+        restore()
+    same = sum(a == b for r, rp in zip(reqs, plain_reqs) for a, b in zip(r.generated, rp.generated))
+    print(f"[slot] the same requests with the plain versions swapped in: {same} of {toks}"
+          f" tokens equal to the kernels'")
+
+    # the compiled wave (budget 0.5) against the plain one, on the same
+    # cache, tokens and positions; then reconfigured inside its bucket
+    before = stats.snapshot()
+    t0 = time.perf_counter()
+    e2 = ServeEngine(cfg_ac, model, max_batch=SLOT["max_batch"], max_len=SLOT["max_len"],
+                     autochunk_budget=SLOT["wave_budget"], device="cuda")
+    wave_build = time.perf_counter() - t0
+    dw = stats.delta(before)
+    res = e2.autochunk_result
+    for full, mine in zip(torch.utils._pytree.tree_leaves(e2.cache),
+                          torch.utils._pytree.tree_leaves(engine.cache)):
+        full.copy_(mine)
+    # slot 0 holds rid 2's cache (admitted first into the freed slots),
+    # slot 1 rid 1's: each row's next token and position
+    toks_w = torch.tensor([plain_reqs[2].generated[-1], plain_reqs[1].generated[-1]],
+                          device="cuda")
+    pos_w = torch.tensor([len(plain_reqs[2].prompt) + len(plain_reqs[2].generated),
+                          len(plain_reqs[1].prompt) + len(plain_reqs[1].generated)],
+                         device="cuda")
+    print(f"[slot] compiled wave: built in {wave_build:.2f}s ({dw['trace_calls']} trace,"
+          f" {dw['search_passes']} search passes), {len(res.plan)} stages, predicted peak"
+          f" {res.baseline_peak} -> {res.final_peak} B (budget {res.budget_bytes} B);"
+          f" dispatch hits {dw['kernel_dispatch_hits']}, misses {dw['kernel_dispatch_misses']}")
+    # both bf16 waves against the plain wave in float32 from the same cache
+    # (the weights and cache widened): the compiled wave's products sum in
+    # other orders, and each layer rounds its output to bf16, so the two
+    # bf16 waves part by a few bf16 steps over 32 layers; the compiled one
+    # must be no further from float32 than 1.5x the plain one (the
+    # per-block rule)
+    with torch.no_grad():
+        params32 = {k: v.float() for k, v in model.named_parameters()}
+        cache32 = torch.utils._pytree.tree_map(lambda t: t.float(), e2.cache)
+        lg_ref = M.decode_fn(model)(params32, cache32, toks_w, pos_w)[:, :cfg.vocab_size]
+        del params32, cache32
+        torch.cuda.empty_cache()
+        CA.computed_attention.launches = CA.masked_attention.launches = 0
+        lg_plain = engine._decode_wave(engine.cache, toks_w, pos_w)[:, :cfg.vocab_size]
+        lg_comp = e2._decode_wave(e2.cache, toks_w, pos_w)[:, :cfg.vocab_size]
+    wave_launches = {"computed_attention": CA.computed_attention.launches,
+                     "masked_attention": CA.masked_attention.launches}
+    wave_err = float((lg_comp.float() - lg_plain.float()).abs().max())
+    d_comp = float((lg_comp.float() - lg_ref).abs().max())
+    d_plain = float((lg_plain.float() - lg_ref).abs().max())
+    print(f"[slot] first compiled wave against the plain one, bf16 logits: max_abs_err"
+          f" {wave_err:.3e} (max|plain| {float(lg_plain.float().abs().max()):.3f}); from the"
+          f" float32 wave: compiled {d_comp:.3e}, plain {d_plain:.3e} (limit 1.5x the plain's);"
+          f" attention kernel launches in the waves {wave_launches}")
+    check(bool(torch.isfinite(lg_comp).all()) and d_comp <= 1.5 * d_plain,
+          f"compiled wave {d_comp} from float32, plain {d_plain}")
+    with torch.no_grad():
+        ms_plain = time_ms(torch, lambda: engine._decode_wave(engine.cache, toks_w, pos_w),
+                           flush, reps=SLOT["wave_reps"])
+        ms_comp = time_ms(torch, lambda: e2._decode_wave(e2.cache, toks_w, pos_w), flush,
+                          reps=SLOT["wave_reps"])
+    print(f"[slot] decode wave {ms_comp:.3f} ms compiled, {ms_plain:.3f} ms plain (CUDA-event"
+          f" medians of {SLOT['wave_reps']}, 2 rows of 8192 cache slots, 32 layers); {card}")
+    del engine
+    torch.cuda.empty_cache()
+    before = stats.snapshot()
+    compiles = e2.exec_stats["wave_compiles"]
+    e2.reconfigure(max_len=SLOT["second_max_len"])
+    dr = stats.delta(before)
+    print(f"[slot] reconfigure(max_len={SLOT['second_max_len']}): exec_len {e2.exec_len},"
+          f" bucket_exec_hits {dr['bucket_exec_hits']}, trace_calls {dr['trace_calls']},"
+          f" search_passes {dr['search_passes']}, wave_compiles"
+          f" {e2.exec_stats['wave_compiles']} (was {compiles})")
+    check(e2.exec_len == 16384 and dr["bucket_exec_hits"] == 1 and dr["trace_calls"] == 0
+          and dr["search_passes"] == 0 and e2.exec_stats["wave_compiles"] == compiles,
+          f"slot reconfigure inside the bucket: {dr}")
+    del e2, model
+    M._AC_CACHE.clear()
+    torch.cuda.empty_cache()
+
+    fp32 = slot_fp32_logits(torch, M, ServeEngine, Request, card)
+    cli = slot_cli(torch)
+    return dict(build_s=build_s, exec_len=16384, ring_width=width, cache_bytes=cache_bytes,
+                wall_s=wall, tokens=toks, tok_s=toks / wall, decode_waves=waves,
+                ttft_s=ttft, computed_attention_launches=n_comp,
+                masked_attention_launches=n_mask, chunked_ffn_launches=n_ffn,
+                plans={str(k): v for k, v in plans.items()}, plain_swapped_equal=same,
+                wave_err=wave_err, wave_err_from_fp32=d_comp, plain_wave_err_from_fp32=d_plain,
+                wave_ms=ms_comp, plain_wave_ms=ms_plain,
+                wave_stages=len(res.plan), wave_build_s=wave_build, fp32=fp32, cli=cli,
+                attention_errs={f"{k}/{dt}": v for (k, dt), v in errs.items()}, errs=errs)
 
 
 # ---------------------------------------------------------------------------
@@ -2572,6 +2962,16 @@ def main() -> int:
     # ---- 13b. phi3-mini-3.8b per block: attention (hd 96) and MLP kernels --
     phi3 = run_phi3_forward(torch, CA, CF, stats, M, card)
 
+    # ---- 13c. the fixed-slot engine: phi3-mini-3.8b past its window ------
+    # (counts zeroed just before serving, read just after); the block plans
+    # and layer-0 kernel checks, the plain versions swapped in, the compiled
+    # wave and its warm reconfigure, fp32 at 4 layers, the CLI at gpt-paper's
+    # width
+    torch.cuda.empty_cache()
+    slot = run_slot_phase(torch, CA, CF, stats, M, flush, card)
+    for (kname, dt_name), err in slot.pop("errs").items():
+        attn_err[(kname, dt_name)] = max(attn_err.get((kname, dt_name), 0.0), err)
+
     # ---- 14. the scan kernels against their plain versions ---------------
     # mamba2's full shape, a length the chunk does not divide, the reduced
     # config's chunk 16, a shape off every tile edge, and with Mamba-2's own
@@ -2633,10 +3033,14 @@ def main() -> int:
     # ---- 17b. the attention kernels at the new head dims' model shapes ---
     # phi3-mini's per-block chunk (hd 96), recurrentgemma's (hd 256, MQA in
     # its window), hubert-xlarge's encoder attention (hd 80, not causal)
+    # (phi3's kernel call: a chunk of rows of 32 heads, or every row of a
+    # chunk of heads)
+    p3 = phi3["bfloat16"]
+    sq3, n3 = ((p3["attention_chunk"], 32) if p3["attention_by"] == "rows"
+               else (PHI3["seq_len"], p3["attention_chunk"]))
     hd_timed = {
-        "phi3_hd96": time_attention_kernels(
-            torch, F, CA, phi3["bfloat16"]["attention_chunk"], PHI3["seq_len"], flush, card,
-            attn_err, N=32, hd=96),
+        "phi3_hd96": time_attention_kernels(torch, F, CA, sq3, PHI3["seq_len"], flush, card,
+                                            attn_err, N=n3, hd=96),
         "recurrentgemma_hd256": time_attention_kernels(
             torch, F, CA, hyb_budget["attention_chunk"], HYBRID_RUN["seq_len"], flush, card,
             attn_err, N=hcfg.n_kv_heads, group=hcfg.n_heads // hcfg.n_kv_heads, hd=hcfg.hd,
@@ -2699,6 +3103,7 @@ def main() -> int:
     entries[1]["block_shape"] = block_attn_timed
     entries[1]["hybrid_budget_forward"] = hyb_budget
     entries[1]["phi3_forward"] = phi3
+    entries[1]["slot_serve"] = slot
     for i, kname in ((1, "computed_attention"), (2, "masked_attention")):
         entries[i]["head_dim_shapes"] = {k: t[kname] for k, t in hd_timed.items()}
     entries[1]["tensor_core_instructions"] = routes["chunked_attention"]
@@ -2719,6 +3124,7 @@ def main() -> int:
         "shape": {k: ffn_timed[k] for k in ("rows", "d", "f", "bytes", "operations")},
         "forward": block,
         "phi3_forward": phi3,
+        "slot_serve": {k: slot[k] for k in ("chunked_ffn_launches", "plans")},
         "tensor_core_instructions": routes["chunked_ffn"],
     })
     for kname, line, run in (("ssd_scan", 78, ssm), ("rglru_scan", 49, hyb)):

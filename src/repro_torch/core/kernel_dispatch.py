@@ -88,6 +88,7 @@ class _BodyCtx:
     sliced: Dict[Node, int]
     escapes: Set[Node]
     var_dim: Dict[Node, int]
+    extent: int = 0                    # full extent of the chunked dim
     # FX nodes outside the body that the graph computes directly (prefix and
     # hoisted nodes): followed read-only through K/V layout chains
     outer: Set[Node] = field(default_factory=set)
@@ -112,7 +113,8 @@ def _outer_nodes(g: Optional[Graph]) -> Set[Node]:
 def _ctx_from_node(node: ChunkLoopNode, outer: Set[Node]) -> _BodyCtx:
     p = node.params
     return _BodyCtx(ops=list(p["body"]), sliced=dict(p["sliced"]),
-                    escapes=set(node.outvars), var_dim=dict(p["var_dim"]), outer=outer)
+                    escapes=set(node.outvars), var_dim=dict(p["var_dim"]),
+                    extent=int(p["chunk_extent"]), outer=outer)
 
 
 def _ctx_from_candidate(g: Graph, cand: ChunkCandidate, outer: Set[Node]) -> _BodyCtx:
@@ -125,7 +127,8 @@ def _ctx_from_candidate(g: Graph, cand: ChunkCandidate, outer: Set[Node]) -> _Bo
     body = {g.nodes[i] for i in cand.in_loop}
     return _BodyCtx(ops=[BodyOp(g.nodes[i]) for i in cand.in_loop],
                     sliced=dict(cand.sliced_in), escapes=escapes,
-                    var_dim=dict(cand.var_dim), outer=outer - body)
+                    var_dim=dict(cand.var_dim), extent=int(cand.chunk_extent),
+                    outer=outer - body)
 
 
 @dataclass
@@ -241,14 +244,17 @@ def _cast_kind(v: Node, src) -> Optional[str]:
 def _walk_chain(ctx: _BodyCtx, v: Node, outward: bool) -> _Chain:
     """Walk back through layout ops and casts.  Stops at a sliced input, at
     a non-layout op, at a cast that rounds (the program reads the rounded
-    value), or (unless ``outward``) at the body's edge."""
+    value), or (unless ``outward``) at the body's edge.  Outward, a value
+    another chunk loop assembles is walked through like one computed
+    outside (it holds its node's values), so the kernel reads that loop's
+    source and the loop, left unread, is dropped."""
     steps = []
     cur = v
     while cur not in ctx.sliced:
         _, op = ctx.op_of(cur)
         if op is not None:
             nm, args = op_name(op.node), op.args
-        elif outward and cur in ctx.outer:
+        elif outward and (cur in ctx.outer or cur.op == "call_function"):
             nm, args = op_name(cur), cur.args
         else:
             break
@@ -266,10 +272,15 @@ def _exact_dtype(ctx: _BodyCtx, v: Node):
     source of a widening cast found by walking back through layout ops
     (inside the body or outside it, read-only), else ``v``'s own dtype.
     A loop that slices the f32 copy of a bf16 tensor so hands the kernel
-    values it can read back in bf16 without rounding."""
+    values it can read back in bf16 without rounding, whether the copy is
+    made outside the loop or by an earlier chunk loop."""
     cur = v
     for _ in range(16):
         got = _args_of(ctx, cur)
+        if got is None and isinstance(cur, Node) and cur.op == "call_function":
+            # an output of another chunk loop: assembled chunk by chunk, it
+            # holds the values of the node it stands for
+            got = op_name(cur), cur.args
         if got is None:
             break
         nm, args = got
@@ -561,20 +572,35 @@ def _try_attention(ctx: _BodyCtx, i_sm: int, mask_mode: str, target: str) -> Opt
     root_dtype = vdtype(root)
     scale_f = float(scale)
 
+    # K and V read from values the loop captures whole are the same for
+    # every chunk: their contiguous copies are made once, by graph nodes
+    # placed before the loop (:func:`_kv_operand_nodes`), and the loop reads those
+    kv_nodes = _kv_operand_nodes(ctx, k_chain, v_chain, kdtype)
+
     def operands(env):
-        q = _replay(env[q_chain.source], q_chain)
-        k = _replay(env[k_chain.source], k_chain).transpose(1, 2)
-        v = _replay(env[v_chain.source], v_chain)
-        return [t.to(kdtype).contiguous() for t in (q, k, v)]
+        q = _replay(env[q_chain.source], q_chain).to(kdtype).contiguous()
+        if kv_nodes is not None:
+            return [q, env[kv_nodes[0]], env[kv_nodes[1]]]
+        k = _KVOperand(k_chain, True, kdtype)(env[k_chain.source])
+        v = _KVOperand(v_chain, False, kdtype)(env[v_chain.source])
+        return [q, k, v]
+
+    kv_reads = kv_nodes if kv_nodes is not None else (k_chain.source, v_chain.source)
 
     # --- mask: computed band or streamed bool -----------------------------------
+    # a band computed from positions: the loop slices the query rows and the
+    # mask's rows alike, or it slices heads and every chunk reads the whole
+    # mask, shared by the heads (its rows start at position 0)
     band = None
     m_rank = len(vshape(mask_var))
-    if mask_mode != "bool" and m_rank >= 2 and ctx.var_dim.get(mask_var) == m_rank - 2 \
-            and ctx.var_dim.get(bt_var) != 2 and ctx.var_dim.get(a_var) == 1:
+    rows_chunked = ctx.var_dim.get(a_var) == 1
+    if mask_mode != "bool" and m_rank >= 2 and ctx.var_dim.get(bt_var) != 2 and (
+            (rows_chunked and ctx.var_dim.get(mask_var) == m_rank - 2)
+            or (ctx.var_dim.get(a_var) == 0 and mask_var not in ctx.var_dim)):
         band = _mask_band(mask_var, invert)
 
-    kv_bytes = 2 * (nb // group) * skv * hd * itemsize
+    # per-chunk copies of K and V, unless nodes before the loop make them
+    kv_bytes = 0 if kv_nodes is not None else 2 * (nb // group) * skv * hd * itemsize
     if band is not None:
         band_u, band_l = band
         causal = band_u < skv - 1
@@ -586,13 +612,13 @@ def _try_attention(ctx: _BodyCtx, i_sm: int, mask_mode: str, target: str) -> Opt
             # (clamped like the loop clamps its slices) plus the band's
             # upper diagonal
             c, ext = kw["c"], kw["ext"]
-            start = min(env[LOOP_INDEX] * c, ext - c)
+            start = min(env[LOOP_INDEX] * c, ext - c) if rows_chunked else 0
             out = _call_kernel(CA.computed_attention, q, k, v, start + band_u,
                                scale=scale_f, causal=causal, window=window, group=group)
             return out.to(root_dtype)
 
-        reads = (q_chain.source, k_chain.source, v_chain.source)
-        mask_bytes = 0
+        reads = (q_chain.source,) + tuple(kv_reads)
+        mask_bytes = mask_heads_n = 0
         mask_ws = None
         variant = "computed"
     else:
@@ -618,25 +644,79 @@ def _try_attention(ctx: _BodyCtx, i_sm: int, mask_mode: str, target: str) -> Opt
             out = _call_kernel(CA.masked_attention, q, k, v, m, scale=scale_f, group=group)
             return out.to(root_dtype)
 
-        reads = (q_chain.source, k_chain.source, v_chain.source, mask_var)
+        reads = (q_chain.source,) + tuple(kv_reads) + (mask_var,)
         m_lead = vshape(mask_var)[:-2]
-        mask_heads = 1 if all(s == 1 for s in m_lead) else nb
-        mask_bytes = mask_heads * skv
-        mask_ws = mask_heads
+        mask_heads_n = 1 if all(s == 1 for s in m_lead) else nb
+        mask_bytes = mask_heads_n * skv
+        mask_ws = mask_heads_n
         variant = "bool"
 
     # the kernel's output is the root itself unless a cast to the root's
     # dtype copies it (bf16 operands of an f32 product)
     out_copies = 2 if kdtype != root_dtype else 1
 
+    # a loop over heads (q's dim 0) hands the kernel every query row of a
+    # share of the heads, with K, V and a per-head mask sliced alike
+    heads_chunked = ctx.var_dim.get(a_var) == 0 and ctx.extent > 0
+
     def extra_bytes(c: int) -> int:
-        # contiguous q, K, V (and mask) operands, the kernel output and (a
-        # bf16 mask) the kernel's tile classes
+        # contiguous q (and, made per chunk, K and V) and mask operands, the
+        # kernel output and (a bf16 mask) the kernel's tile classes
+        if heads_chunked:
+            f = min(c, ctx.extent) / ctx.extent
+            heads = max(1, round(mask_ws * f)) if mask_ws else 0
+            ws = 0 if mask_ws is None else CA.masked_workspace_bytes(heads, sq, skv, kdtype)
+            per_head_mask = mask_bytes * sq if mask_heads_n > 1 else 0
+            return int(f * (kv_bytes + out_copies * nb * sq * hd * itemsize + per_head_mask)) + ws
         ws = 0 if mask_ws is None else CA.masked_workspace_bytes(mask_ws, c, skv, kdtype)
         return kv_bytes + out_copies * nb * c * hd * itemsize + mask_bytes * c + ws
 
     return Match(kind="attention", interior=interior, at=i_dg2, root=root, reads=reads,
                  launch=launch, extra_bytes=extra_bytes, mask=variant)
+
+
+class _KVOperand:
+    """The attention kernel's K (``transpose``: (N, Skv, hd) from the chain's
+    (N, hd, Skv)) or V operand: the chain's layout ops replayed on the
+    source value, cast to the kernel's dtype, made contiguous."""
+
+    __name__ = "attention_kv_operand"
+
+    def __init__(self, chain: _Chain, transpose: bool, dtype: torch.dtype):
+        self.chain, self.transpose, self.dtype = chain, transpose, dtype
+
+    def __call__(self, t: torch.Tensor) -> torch.Tensor:
+        t = _replay(t, self.chain)
+        if self.transpose:
+            t = t.transpose(1, 2)
+        return t.to(self.dtype).contiguous()
+
+
+def _kv_operand_nodes(ctx: _BodyCtx, k_chain: _Chain, v_chain: _Chain,
+                      dtype: torch.dtype) -> Optional[Tuple[Node, Node]]:
+    """Graph nodes computing the kernel's K and V operands once, when both
+    chains start at values the loop captures whole (neither sliced nor
+    computed in the body); None otherwise.
+
+    Each node is an FX node of its own graph, ``attention_kv_operand`` of
+    its source, with the operand's ``meta`` value.  :func:`dispatch_graph`
+    places it before the loop, so the estimator charges the copy as a value
+    and the source can die there; the kernel bytes of the body no longer
+    count it.  A kernel that copied K and V in every chunk held them beside
+    their sources (ROADMAP C-5) and moved them once a chunk."""
+    out = []
+    for chain, transpose in ((k_chain, True), (v_chain, False)):
+        src = chain.source
+        if src in ctx.sliced or ctx.op_of(src)[1] is not None \
+                or not isinstance(src.meta.get("val"), torch.Tensor):
+            return None
+        fn = _KVOperand(chain, transpose, dtype)
+        fxg = torch.fx.Graph()
+        node = fxg.create_node("call_function", fn, (src,), {}, name="attention_kv_operand")
+        val = src.meta["val"]
+        node.meta["val"] = fn(torch.empty(val.shape, dtype=val.dtype, device="meta"))
+        out.append(node)
+    return out[0], out[1]
 
 
 # ---------------------------------------------------------------------------
@@ -955,9 +1035,15 @@ def dispatch_node(node: ChunkLoopNode, g: Optional[Graph] = None, outer=None, *,
     return len(records)
 
 
+def _mutates(loop: ChunkLoopNode) -> bool:
+    return any(getattr(getattr(op.node.target, "_schema", None), "is_mutable", False)
+               for op in loop.params["body"])
+
+
 def _prune_graph(g: Graph) -> Graph:
     """Fixpoint dead-node elimination after dispatch: node-input pruning can
-    orphan whole prefix chains (a mask's, a repeated K's)."""
+    orphan whole prefix chains (a mask's, a repeated K's), and a kernel
+    reading through another loop's output can leave that loop unread."""
     from .graph import node_ins
 
     nodes = list(g.nodes)
@@ -965,7 +1051,8 @@ def _prune_graph(g: Graph) -> Graph:
         consumed: Set[Node] = set(g.outvars)
         for n in nodes:
             consumed.update(node_ins(n))
-        keep = [n for n in nodes if is_chunk_loop(n) or n in consumed]
+        keep = [n for n in nodes if n in consumed or (
+            is_chunk_loop(n) and (_mutates(n) or any(v in consumed for v in n.outvars)))]
         if len(keep) == len(nodes):
             break
         nodes = keep
@@ -981,7 +1068,19 @@ def dispatch_graph(g: Graph, *, mask_mode: str = "auto", target: Optional[str] =
     dispatched = 0
     for node in [n for n in g.nodes if is_chunk_loop(n)]:
         dispatched += dispatch_node(node, g, outer, mask_mode=mask_mode, target=target)
-    return _prune_graph(g) if dispatched else g
+    if not dispatched:
+        return g
+    # the operand nodes a dispatch made (K and V copied once a call) go just
+    # before their loop
+    known = set(g.producer) | g.input_set
+    nodes = []
+    for n in g.nodes:
+        if is_chunk_loop(n):
+            nodes.extend(v for v in n.invars if v not in known)
+        nodes.append(n)
+    return _prune_graph(Graph(invars=list(g.invars), outvars=list(g.outvars), nodes=nodes,
+                              weight_invars=set(g.weight_invars), consts=dict(g.consts),
+                              gm=g.gm))
 
 
 def annotate_candidates(g: Graph, cands: Sequence[ChunkCandidate],

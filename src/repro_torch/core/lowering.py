@@ -430,10 +430,11 @@ def make_chunk_loop(g: Graph, cand: ChunkCandidate, n_chunks: int) -> ChunkLoopN
     )
     node.params["body_peak"] = _body_peak_bytes(node)
     if cand.kernel_bytes is not None:
-        # dispatch-aware selection marked this body as kernelizable: cap the
-        # modeled body peak so the beam's estimate agrees with the one that
-        # picked n; the dispatch pass recomputes it from the real skip sets
-        node.params["body_peak"] = min(node.params["body_peak"], cand.kernel_bytes(c))
+        # dispatch-aware selection marked this body as kernelizable: model
+        # the body peak as the dispatched body's, so the beam's estimate
+        # agrees with the one that picked n; the dispatch pass recomputes it
+        # from the real skip sets
+        node.params["body_peak"] = cand.kernel_bytes(c)
     return node
 
 

@@ -79,9 +79,10 @@ class ChunkCandidate:
         scaled = int(self.body_peak_bytes * c / max(self.chunk_extent, 1))
         if self.kernel_bytes is not None:
             # dispatch-aware cost: the fused kernel never materializes the
-            # body's chunk-sized intermediates; charge its own bytes, never
-            # more than the generic body estimate
-            return min(scaled, self.kernel_bytes(c))
+            # body's chunk-sized intermediates but holds its own operands
+            # and scratch, which can exceed the generic body's chunk-sized
+            # values: charge the kernel's bytes as they are
+            return self.kernel_bytes(c)
         return scaled
 
     def key(self) -> Tuple:

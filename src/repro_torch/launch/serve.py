@@ -1,24 +1,37 @@
-"""Serving CLI: batched requests through the paged engine.
+"""Serving CLI: batched requests through the fixed-slot engine, or the
+paged engine with ``--paged``.
 
-  python -m repro_torch.launch.serve --arch gpt-paper --paged --stagger \
+  python -m repro_torch.launch.serve --arch gpt-paper --max-batch 4 \
       --requests 8 --prompt-len 256 --max-len 2048 --max-new 32
 
 runs on the CUDA device by default (``--device cpu`` runs the plain PyTorch
 kernels).  ``--local`` serves ``reduced()`` of the config in float32.
-``--stagger`` gives request ``i`` a different prompt length, so short and
-long requests overlap and steps mix prefill and decode rows; the
-``[serve] paged:`` line reports the continuous-batching counters.
 
-``--prefix-cache`` turns on the prefix-sharing radix cache and
-``--spill-pages N`` its host spill tier of N pages.  ``--shared-prefix L``
-serves the shared-system-prompt scenario: every request's prompt starts
-with the same L tokens, requests drain one by one, and every third one is
-an uncached filler (``cache_prefix=False``) whose admission presses the
-pool, so cached pages spill and the next shared request restores them.
-The ``[serve] prefix:`` line reports the cache's counters.
+Without ``--paged``, ``ServeEngine`` serves the requests from
+``--max-batch`` slots over ring KV caches (a sliding-window model keeps its
+window).  ``--autochunk B`` compiles the decode wave under the activation
+budget B at the bucket boundary of ``--max-len`` (``--bucket-lens`` sets
+the boundaries, ``--no-canonical-exec`` compiles at ``--max-len`` itself),
+with plans in ``--plan-cache DIR`` (evicted by ``--cache-policy`` beyond
+``--cache-max-entries``).  ``--second-max-len L`` serves the batch again
+after ``reconfigure(max_len=L)``; inside the same bucket the ``[serve]
+second run:`` line shows the wave reused (``bucket_exec_hits=1
+new_traces=0 new_searches=0 new_wave_compiles=0``).
 
-The fixed-slot engine (serving without ``--paged``) is not in the port yet
-(ROADMAP queue A item 8b).
+``--paged`` serves on the paged KV pool.  ``--stagger`` gives request ``i``
+a different prompt length, so short and long requests overlap and steps
+mix prefill and decode rows; the ``[serve] paged:`` line reports the
+continuous-batching counters.  ``--prefix-cache`` turns on the
+prefix-sharing radix cache and ``--spill-pages N`` its host spill tier of N
+pages.  ``--shared-prefix L`` serves the shared-system-prompt scenario:
+every request's prompt starts with the same L tokens, requests drain one by
+one, and every third one is an uncached filler (``cache_prefix=False``)
+whose admission presses the pool, so cached pages spill and the next shared
+request restores them.  The ``[serve] prefix:`` line reports the cache's
+counters.
+
+``--autotune``, ``--mesh`` and the observability outputs are refused with
+their ROADMAP items (queue A items 7, 11 and 9).
 """
 from __future__ import annotations
 
@@ -31,7 +44,8 @@ import numpy as np
 from ..configs import get_config
 from ..core import stats
 from ..models import model as M
-from ..serving import PagedServeEngine, Request
+from ..core.plan import PlanCache
+from ..serving import PagedServeEngine, Request, ServeEngine
 
 
 def serve_paged(cfg, params, rng, args):
@@ -124,6 +138,69 @@ def serve_paged(cfg, params, rng, args):
     return engine
 
 
+def serve_slots(cfg, params, rng, args):
+    """Drive the fixed-slot engine (the default)."""
+    bucket_lens = ([int(s) for s in args.bucket_lens.split(",") if s]
+                   if args.bucket_lens else None)
+    t0 = time.perf_counter()
+    engine = ServeEngine(
+        cfg, params,
+        max_batch=args.max_batch, max_len=args.max_len,
+        autochunk_budget=args.autochunk, plan_cache=args.plan_cache,
+        bucket_lens=bucket_lens, canonical_bucket_exec=not args.no_canonical_exec,
+        cache_policy=args.cache_policy, cache_max_entries=args.cache_max_entries,
+        greedy=not args.sample, seed=args.seed, device=args.device,
+    )
+    t_build = time.perf_counter() - t0
+    if args.autochunk is not None:
+        res = engine.autochunk_result
+        state = "warm" if res.from_cache else "cold"
+        print(f"[serve] engine built in {t_build:.2f}s; plan cache: {state}"
+              f" (stages={len(res.plan)}, exec_len={engine.exec_len},"
+              f" peak {res.baseline_peak/2**20:.1f} -> {res.final_peak/2**20:.1f} MiB)")
+
+    def serve_batch(tag: str):
+        t0 = time.perf_counter()
+        n0 = len(engine.finished)
+        for i in range(args.requests):
+            prompt = rng.integers(0, cfg.vocab_size, args.prompt_len).tolist()
+            engine.submit(Request(rid=i, prompt=prompt, max_new_tokens=args.max_new))
+        done = engine.run()[n0:]
+        dt = time.perf_counter() - t0
+        toks = sum(len(r.generated) for r in done)
+        print(f"[serve]{tag} {len(done)} requests, {toks} tokens in {dt:.2f}s"
+              f" ({toks/dt:.1f} tok/s, {engine.n_decode_steps} decode waves)")
+        return done
+
+    done = serve_batch("")
+    if args.second_max_len is not None:
+        before = stats.snapshot()
+        compiles = engine.exec_stats["wave_compiles"]
+        engine.reconfigure(max_len=args.second_max_len)
+        serve_batch(f" second run @ max_len={args.second_max_len}:")
+        d = stats.delta(before)
+        print("[serve] second run:"
+              f" bucket_exec_hits={d['bucket_exec_hits']}"
+              f" new_traces={d['trace_calls']}"
+              f" new_searches={d['search_passes']}"
+              f" new_wave_compiles={engine.exec_stats['wave_compiles'] - compiles}")
+    if engine.plan_cache is not None:
+        print(f"[serve] plan cache stats: {engine.plan_cache.stats()}")
+        if args.cache_max_entries is not None:
+            print(f"[serve] cache eviction: policy={args.cache_policy}"
+                  f" max_entries={args.cache_max_entries}"
+                  f" evicted={engine.exec_stats['evicted']}")
+    snap = stats.snapshot()
+    print("[serve] codegen stats:"
+          f" lowering_emits={snap['lowering_emits']}"
+          f" trace_calls={snap['trace_calls']}"
+          f" kernel_dispatch_hits={snap['kernel_dispatch_hits']}"
+          f" kernel_dispatch_misses={snap['kernel_dispatch_misses']}")
+    for r in done[:3]:
+        print(f"  req {r.rid}: {r.generated[:8]}...")
+    return engine
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -134,11 +211,36 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-batch", type=int, default=4,
+                    help="slots of the fixed-slot engine")
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--autochunk", type=float, default=None,
-                    help="activation budget of the prefill planner: <= 1.0 is"
-                         " a ratio of the unchunked peak, > 1.0 bytes"
-                         " (default 0.5)")
+                    help="activation budget (<= 1.0 a ratio of the unchunked"
+                         " peak, > 1.0 bytes): the decode wave's, or with"
+                         " --paged the prefill planner's (default 0.5)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="refused: the kernel autotuner is ROADMAP queue A item 7")
+    ap.add_argument("--plan-cache", type=str, default=None,
+                    help="on-disk plan cache directory (shared across runs)")
+    ap.add_argument("--bucket-lens", type=str, default=None,
+                    help="comma-separated seq-len bucket boundaries for plan"
+                         " reuse across max-len reconfigurations")
+    ap.add_argument("--second-max-len", type=int, default=None,
+                    help="serve the batch again after reconfiguring to this"
+                         " max-len; inside the same bucket this reuses the"
+                         " bucket's wave (0 traces, 0 compiles)")
+    ap.add_argument("--no-canonical-exec", action="store_true",
+                    help="compile per exact max-len instead of at the bucket"
+                         " boundary")
+    ap.add_argument("--cache-policy", choices=list(PlanCache.POLICIES), default="lru",
+                    help="plan-cache eviction policy (see PlanCache.evict)")
+    ap.add_argument("--cache-max-entries", type=int, default=None,
+                    help="evict plans beyond this count at engine idle points")
+    ap.add_argument("--mesh", type=str, default=None,
+                    help="refused: device meshes are ROADMAP queue A item 11")
+    for flag in ("--metrics-out", "--trace-out", "--prom-out"):
+        ap.add_argument(flag, type=str, default=None,
+                        help="refused: observability is ROADMAP queue A item 9")
     ap.add_argument("--sample", action="store_true",
                     help="sample from the logits instead of greedy argmax")
     ap.add_argument("--seed", type=int, default=0)
@@ -170,16 +272,22 @@ def main(argv=None):
                          " of this many tokens (requests drain one by one;"
                          " every third is an uncached filler)")
     args = ap.parse_args(argv)
-    if not args.paged:
-        sys.exit("the fixed-slot engine is not in the port yet (ROADMAP queue A"
-                 " item 8b); pass --paged")
+    for asked, item in ((args.autotune, "--autotune: ROADMAP queue A item 7 (autotune)"),
+                        (args.mesh, "--mesh: ROADMAP queue A item 11 (mesh)"),
+                        (args.metrics_out or args.trace_out or args.prom_out,
+                         "--metrics-out/--trace-out/--prom-out: ROADMAP queue A item 9"
+                         " (observability)")):
+        if asked:
+            sys.exit(f"not in the port yet: {item}")
 
     cfg = get_config(args.arch)
     if args.local:
         cfg = cfg.reduced().with_(dtype="float32")
     params = M.init_params(cfg, args.seed, device=args.device)
     rng = np.random.default_rng(args.seed)
-    return serve_paged(cfg, params, rng, args)
+    if args.paged:
+        return serve_paged(cfg, params, rng, args)
+    return serve_slots(cfg, params, rng, args)
 
 
 if __name__ == "__main__":

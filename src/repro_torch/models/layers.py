@@ -89,11 +89,18 @@ def apply_rope(x, positions, theta: float):
 # --------------------------------------------------------------------------
 
 def attention_scores_mask(q_pos, kv_pos, *, causal: bool, window: Optional[int]):
-    """Boolean mask (q_len, kv_len): True = attend."""
-    dq = q_pos[:, None]
-    dk = kv_pos[None, :]
-    mask = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
-                      device=q_pos.device)
+    """Boolean mask (q_len, kv_len): True = attend.  With per-row positions,
+    ``q_pos`` (B, q_len) and ``kv_pos`` (B, kv_len), the mask is
+    (B, q_len, kv_len)."""
+    if q_pos.dim() == 2:
+        dq = q_pos[:, :, None]
+        dk = kv_pos[:, None, :]
+        shape = (q_pos.shape[0], q_pos.shape[1], kv_pos.shape[1])
+    else:
+        dq = q_pos[:, None]
+        dk = kv_pos[None, :]
+        shape = (q_pos.shape[0], kv_pos.shape[0])
+    mask = torch.ones(shape, dtype=torch.bool, device=q_pos.device)
     if causal:
         mask = mask & (dk <= dq)
     if window is not None:
@@ -104,6 +111,11 @@ def attention_scores_mask(q_pos, kv_pos, *, causal: bool, window: Optional[int])
 def gqa_attention(q, k, v, *, q_pos, kv_pos, causal: bool = True,
                   window: Optional[int] = None, kv_valid=None):
     """q: (B,Sq,H,hd); k,v: (B,Skv,Kv,hd).  Returns (B,Sq,H,hd).
+
+    ``q_pos`` (Sq,) and ``kv_pos`` (Skv,) are shared by every row, as the
+    JAX function takes them; the serving decode step gives each row its own,
+    (B, Sq) and (B, Skv), with ``kv_valid`` (B, Skv): each row's mask is the
+    one the JAX function gives that row alone.
 
     Written as broadcast matmuls over ``(B, Kv, G)`` rather than einsums:
     K and V enter as strided views, so no permuted copy of the context is
@@ -117,7 +129,11 @@ def gqa_attention(q, k, v, *, q_pos, kv_pos, causal: bool = True,
     kt = k.float().permute(0, 2, 3, 1).unsqueeze(2)                   # (B,Kv,1,hd,Skv)
     logits = (qg @ kt) * scale                                        # (B,Kv,G,Sq,Skv)
     mask = attention_scores_mask(q_pos, kv_pos, causal=causal, window=window)
-    if kv_valid is not None:
+    if mask.dim() == 3:                                               # per-row positions
+        if kv_valid is not None:
+            mask = mask & kv_valid[:, None, :]
+        mask = mask[:, None, None]                                    # (B,1,1,Sq,Skv)
+    elif kv_valid is not None:
         mask = mask & kv_valid[None, :]
     logits = torch.where(mask, logits, NEG_INF)
     a = torch.softmax(logits, dim=-1)

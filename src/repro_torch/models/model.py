@@ -1,5 +1,6 @@
 """Model assembly: init and full-sequence forward of the dense, SSM and
-hybrid families.
+hybrid families; the serving caches, decode step and prefill of the dense
+and vlm families.
 
 Parameters live in a :class:`Model` (an ``nn.Module``) whose ``state_dict``
 keys follow the JAX package's pytree paths: ``blocks.0.attn.wq`` for the
@@ -14,6 +15,7 @@ from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils import _pytree as pytree
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -299,3 +301,246 @@ def forward(cfg: ModelConfig, params: Model, batch, *, window: Optional[int] = N
     h = L.apply_norm(cfg, h, params["final_norm"])
     logits = L.unembed(cfg, params["embed"], h)
     return logits, aux
+
+
+# ===========================================================================
+# KV caches (serving)
+# ===========================================================================
+# A cache spec is a ``meta`` tensor (the port's ShapeDtypeStruct); a cache
+# is the same tree of zero tensors on a device.  The cache dtype is the
+# model's.
+
+_DECODE_LATER = "ROADMAP queue A item 10"
+
+
+def _no_decode(what: str, part: str):
+    return NotImplementedError(f"{what}: the port's decode has the dense and vlm families"
+                               f" ({_DECODE_LATER} {part})")
+
+
+def cache_width(cfg: ModelConfig, max_len: int) -> int:
+    """Ring width of an attention cache: the sliding window when it is
+    shorter than ``max_len``, else ``max_len``."""
+    if cfg.sliding_window is not None and max_len > cfg.sliding_window:
+        return cfg.sliding_window
+    return max_len
+
+
+def _spec(shape, dtype):
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def layer_cache_spec(cfg: ModelConfig, kind: str, batch: int, width: int):
+    """One layer's cache spec: ``{"k", "v"}`` of (batch, width, Kv, hd) for
+    ``attn``; ``local_attn`` caps the width at ``cfg.local_window``."""
+    if kind in ("ssm", "rglru"):
+        raise _no_decode(f"the {kind} state cache", "(b)")
+    if kind not in ("attn", "local_attn"):
+        raise ValueError(kind)
+    if cfg.mla:
+        raise _no_decode("the MLA latent cache", "(c)")
+    w = min(width, cfg.local_window) if kind == "local_attn" else width
+    shape = (batch, w, cfg.n_kv_heads, cfg.hd)
+    return {"k": _spec(shape, cfg.torch_dtype), "v": _spec(shape, cfg.torch_dtype)}
+
+
+def layer_kinds(cfg: ModelConfig):
+    fam = cfg.family
+    if fam in ("dense", "vlm", "moe"):
+        return ["attn"] * cfg.n_layers
+    if fam == "ssm":
+        return ["ssm"] * cfg.n_layers
+    if fam == "hybrid":
+        return ["local_attn" if cfg.is_attention_layer(i) else "rglru"
+                for i in range(cfg.n_layers)]
+    raise ValueError(f"{fam} has no decode cache")
+
+
+def _stack_specs(per_layer):
+    return {k: _spec((len(per_layer),) + tuple(per_layer[0][k].shape), per_layer[0][k].dtype)
+            for k in per_layer[0]}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+    """Specs of the whole cache: ``{"layers": {leaf: (L, batch, ...)}}`` for
+    ``scan_layers`` (the stacked form), ``{"layers": [per layer]}`` otherwise,
+    as the JAX package lays them out."""
+    width = cache_width(cfg, max_len)
+    per_layer = [layer_cache_spec(cfg, k, batch, width) for k in layer_kinds(cfg)]
+    if cfg.scan_layers and cfg.family in ("dense", "vlm", "ssm"):
+        return {"layers": _stack_specs(per_layer)}
+    if cfg.scan_layers and cfg.family == "moe":
+        dense, moe_layers = per_layer[: cfg.first_k_dense], per_layer[cfg.first_k_dense:]
+        out = {"moe_layers": _stack_specs(moe_layers)}
+        if dense:
+            out["dense_layers"] = dense
+        return out
+    return {"layers": per_layer}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
+    """A zero cache for ``batch`` rows of up to ``max_len`` positions."""
+    dev = resolve_device(device)
+    return pytree.tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+                           cache_specs(cfg, batch, max_len))
+
+
+def _layer_cache(cache, i: int):
+    """Layer ``i``'s ``{"k", "v"}``: entries of the list form, views into
+    the stacked form (writes into them reach the cache)."""
+    layers = cache["layers"]
+    if isinstance(layers, (list, tuple)):
+        return layers[i]
+    return {k: v[i] for k, v in layers.items()}
+
+
+# ===========================================================================
+# Decode step (serving): one token per row against the ring cache
+# ===========================================================================
+
+def _ring_kv_positions(pos, width: int):
+    """Position held by each ring slot after position ``pos`` was written:
+    ``pos - (pos - i) % width`` (negative: never written).  ``pos`` (B,)
+    gives (B, width)."""
+    i = torch.arange(width, dtype=torch.int64, device=pos.device)
+    pos = pos.to(torch.int64)[..., None]
+    return pos - torch.remainder(pos - i, width)
+
+
+def attn_block_decode(cfg, p, x, cache, pos, *, window=None, local=False):
+    """x: (B,1,d), ``pos`` (B,): row ``b``'s token sits at ``pos[b]``.
+
+    Writes each row's K/V into its cache row at slot ``pos[b] % width`` in
+    place, then attends over that row's ring positions.  Returns ``x`` plus
+    the attention output."""
+    B = x.shape[0]
+    h = L.apply_norm(cfg, x, p["ln1"])
+    width = cache["k"].shape[1]
+    slot = torch.remainder(pos, width).to(torch.int64)
+    kv_pos = _ring_kv_positions(pos, width)
+    q, k, v = L.attn_project_qkv(cfg, p["attn"], h, pos[:, None])
+    rows = torch.arange(B, device=x.device)
+    cache["k"][rows, slot] = k[:, 0]
+    cache["v"][rows, slot] = v[:, 0]
+    win = cfg.local_window if local else window
+    o = L.gqa_attention(q, cache["k"], cache["v"], q_pos=pos[:, None].to(torch.int64),
+                        kv_pos=kv_pos, causal=True, window=win, kv_valid=kv_pos >= 0)
+    return x + o.reshape(B, 1, -1) @ p["attn"]["wo"]
+
+
+def dense_block_decode(cfg, p, x, cache, pos, *, window=None, local=False):
+    x = attn_block_decode(cfg, p, x, cache, pos, window=window, local=local)
+    h = L.apply_norm(cfg, x, p["ln2"])
+    return x + L.mlp(cfg, p["mlp"], h)
+
+
+def _check_decode_family(cfg: ModelConfig):
+    if cfg.family in ("ssm", "hybrid"):
+        raise _no_decode(f"family {cfg.family!r}", "(b)")
+    if cfg.family == "moe" or cfg.mla:
+        raise _no_decode("the MoE family and MLA", "(c)")
+    if cfg.family not in ("dense", "vlm"):
+        raise ValueError(f"{cfg.family} has no decode cache")
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *, window=None):
+    """One serving step: ``tokens`` (B,1) int, ``pos`` (B,) int (or one int
+    for every row).  Returns ``(logits (B,1,V), cache)``: the cache is the
+    same object, its rows written in place (the JAX package returns a new
+    one).  ``params`` is a :class:`Model`."""
+    _check_decode_family(cfg)
+    if window is None:
+        window = cfg.sliding_window
+    h = L.embed(cfg, params["embed"], tokens)
+    pos = torch.as_tensor(pos, device=h.device)
+    if pos.dim() == 0:
+        pos = pos.expand(h.shape[0])
+    for i in range(cfg.n_layers):
+        h = dense_block_decode(cfg, params.layer_params(i), h, _layer_cache(cache, i), pos,
+                               window=window)
+    h = L.apply_norm(cfg, h, params["final_norm"])
+    return L.unembed(cfg, params["embed"], h), cache
+
+
+class _DecodeWave(nn.Module):
+    """``decode_step`` of a model as a module, for ``functional_call``."""
+
+    def __init__(self, model: Model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, cache, tokens, pos):
+        return decode_step(self.model.cfg, self.model, cache, tokens[:, None], pos)[0][:, 0]
+
+
+def decode_fn(model: Model):
+    """``fn(params, cache, tokens, pos) -> logits (B, V)``: one decode wave
+    (``tokens`` and ``pos`` both (B,)) over a dict of parameter tensors
+    (``dict(model.named_parameters())``), writing the cache in place.  The
+    form the AutoChunk compiler traces, as :func:`logits_fn` is for the
+    forward: the weights are inputs of the graph."""
+    wave = _DecodeWave(model)
+
+    def fn(params, cache, tokens, pos):
+        named = {f"model.{k}": v for k, v in params.items()}
+        return torch.func.functional_call(wave, named, (cache, tokens, pos))
+
+    return fn
+
+
+# ===========================================================================
+# Prefill: the prompt's forward that also fills the decode cache
+# ===========================================================================
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: Model, batch, max_len: int, *, window=None):
+    """Run the full prompt; returns ``(logits (B,S,V), cache)`` with each
+    layer's K/V of the prompt in the ring layout of width
+    ``cache_width(cfg, max_len)``.
+
+    One pass: each layer's K/V are projected from its input, then the block
+    runs; with ``cfg.autochunk_budget`` the block is the per-block compiled
+    function the forward uses (its attention and SwiGLU MLP on their
+    kernels).  The JAX package runs the forward, then the stack again to
+    capture K/V; the logits and caches are the same."""
+    _check_decode_family(cfg)
+    if window is None:
+        window = cfg.sliding_window
+    h, positions = embed_inputs(cfg, params, batch)
+    S = h.shape[1]
+    width = cache_width(cfg, max_len)
+
+    def block(p, x):
+        return dense_block_full(cfg, p, x, window=window, causal=cfg.causal)
+
+    if cfg.autochunk_budget:
+        block = _maybe_autochunk(cfg, f"dense{window}", block)
+    blocks = params["blocks"]
+    stacked = not isinstance(blocks, nn.ModuleList)
+    caches = []
+    for i in range(cfg.n_layers):
+        p = _index_tree(blocks, i) if stacked else _index_tree(blocks[i])
+        hn = L.apply_norm(cfg, h, p["ln1"])
+        _, k, v = L.attn_project_qkv(cfg, p["attn"], hn, positions)
+        caches.append(_pad_kv({"k": k, "v": v}, width, S))
+        h = block(p, h)
+    h = L.apply_norm(cfg, h, params["final_norm"])
+    logits = L.unembed(cfg, params["embed"], h)
+    if cfg.scan_layers:
+        return logits, {"layers": {k: torch.stack([c[k] for c in caches]) for k in ("k", "v")}}
+    return logits, {"layers": caches}
+
+
+def _pad_kv(c, width: int, S: int):
+    """Place the last min(S, width) positions into the ring layout."""
+    def fix(x):
+        if x.dim() < 2 or x.shape[1] == width:
+            return x
+        if x.shape[1] > width:  # keep the window tail, ring-aligned
+            # position of tail[j] is S - width + j; its slot is pos % width
+            return torch.roll(x[:, -width:], (S - width) % width, dims=1)
+        pad = x.new_zeros((x.shape[0], width - x.shape[1]) + tuple(x.shape[2:]))
+        return torch.cat([x, pad], dim=1)
+
+    return {k: fix(v) for k, v in c.items()}

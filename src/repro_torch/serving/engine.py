@@ -1,10 +1,24 @@
-"""Continuous batching over a paged KV pool.
+"""Serving engines: fixed slots over ring KV caches, and continuous
+batching over a paged KV pool.
 
-A port of the JAX package's ``PagedServeEngine``.  Each engine step
-assembles one ragged batch holding a single token for every decoding
-sequence plus a planner-sized chunk of prompt for sequences still
-prefilling, and runs it through the model with the hand-written paged
-attention kernel at every layer:
+A port of the JAX package's ``ServeEngine`` and ``PagedServeEngine``.
+
+``ServeEngine`` holds ``max_batch`` slots, each one request's KV cache
+(a ring of ``cache_width`` positions: a sliding-window model keeps only its
+window, so it serves past it).  A request is prefilled alone into a free
+slot; one decode wave then advances every slot by one token, each at its
+own position (one batched step with a ``pos`` of shape (B,), where the JAX
+package vmaps a one-row step).  With ``cfg.autochunk_budget`` the prefill
+runs the per-block compiled forward (attention and SwiGLU on their
+kernels); with ``autochunk_budget`` the decode wave is compiled through the
+AutoChunk pipeline, on the engine's plan cache and shape bucketer, at the
+bucket boundary of ``max_len`` (``exec_len``), so ``reconfigure()`` inside
+a warm bucket reuses the wave object-identically.
+
+``PagedServeEngine`` assembles, at each step, one ragged batch holding a
+single token for every decoding sequence plus a planner-sized chunk of
+prompt for sequences still prefilling, and runs it through the model with
+the hand-written paged attention kernel at every layer:
 
 * admission is bounded by free pages, not slots: a request is admitted iff
   the pool can reserve ``prompt + max_new_tokens`` worth of pages, so an
@@ -20,24 +34,26 @@ attention kernel at every layer:
   ``spill_pages`` adds the host spill tier, so an admission short of pages
   spills cached pages and retries.
 
-Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): kernel autotuning, the device mesh, and the telemetry spans and
-histograms.
+Not in this slice, for either engine (each raises ``NotImplementedError``
+naming its ROADMAP item): kernel autotuning, the device mesh, and the
+telemetry spans and histograms.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from ..configs.base import ModelConfig
 from ..core import stats
 from ..device import resolve_device
 from ..kernels.paged_attention import cuda_refusal, paged_attention_blocked
 from ..models import layers as L
+from ..models import model as M
 from ..models.model import Model
 
 
@@ -68,6 +84,291 @@ class Request:
         if self.finished_at is None:
             return None
         return self.finished_at - self.submitted_at
+
+
+def _sample(logits, greedy: bool, generator) -> List[int]:
+    """One token per row of ``logits`` (rows, V): greedy argmax, else a draw
+    with the engine's generator."""
+    if greedy:
+        return torch.argmax(logits, dim=-1).tolist()
+    probs = torch.softmax(logits.float(), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].tolist()
+
+
+def _refuse_unported(autotune: bool, mesh, obs: bool) -> None:
+    for name, asked, item in (
+        ("autotune", autotune, "ROADMAP queue A item 7 (autotune)"),
+        ("mesh", mesh is not None, "ROADMAP queue A item 11 (mesh)"),
+        ("obs", obs, "ROADMAP queue A item 9 (observability)"),
+    ):
+        if asked:
+            raise NotImplementedError(f"{name} is not in the port yet: {item}")
+
+
+class ServeEngine:
+    """Fixed-slot batched serving over ring KV caches.
+
+    ``plan_accuracy`` (the predicted-against-measured peak of the serving
+    plan) is left out of :meth:`metrics`: it comes with the observability
+    slice (ROADMAP queue A item 9).
+    """
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params: Model,
+        *,
+        max_batch: int = 4,
+        max_len: int = 256,
+        autochunk_budget: Optional[float] = None,
+        autotune: bool = False,
+        plan_cache=None,
+        bucket_lens=None,
+        canonical_bucket_exec: bool = True,
+        cache_policy: str = "lru",
+        cache_max_entries: Optional[int] = None,
+        greedy: bool = True,
+        seed: int = 0,
+        obs: bool = False,
+        mesh=None,
+        device="cuda",
+    ):
+        from ..core import ShapeBucketer
+        from ..core.plan import PlanCache, as_plan_cache
+
+        _refuse_unported(autotune, mesh, obs)
+        M._check_decode_family(cfg)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params.to(self.device)
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.greedy = greedy
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.autochunk_budget = autochunk_budget
+        # with a budget, an in-memory cache is always made, so reconfigure()
+        # back to a shape seen before replays its plan
+        self.plan_cache = as_plan_cache(plan_cache)
+        if self.plan_cache is None and autochunk_budget is not None:
+            self.plan_cache = PlanCache()
+        if cache_policy not in PlanCache.POLICIES:
+            raise ValueError(f"cache_policy must be one of {PlanCache.POLICIES},"
+                             f" got {cache_policy!r}")
+        self.cache_policy = cache_policy
+        self.cache_max_entries = cache_max_entries
+        self.bucketer = ShapeBucketer(buckets=tuple(bucket_lens) if bucket_lens else None)
+        # slots and the decode wave are built at the bucket boundary of
+        # max_len: one wave serves the whole bucket (max_len stays the
+        # logical cap)
+        self.canonical_bucket_exec = canonical_bucket_exec
+        self.autochunk_result = None
+        self._chunked_fn = None
+        # (max_batch, exec_len) -> (decode wave, autochunk result): a
+        # reconfigure inside a warm bucket restores them object-identically
+        self._wave_cache: Dict[tuple, tuple] = {}
+        self.exec_stats = {"wave_compiles": 0, "wave_reuses": 0, "evicted": 0}
+        self.waiting: List[Request] = []
+        self.finished: List[Request] = []
+        self.n_decode_steps = 0
+        self._init_slots()
+        self._compile()
+
+    @property
+    def exec_len(self) -> int:
+        """Cache and wave length: the bucket boundary of ``max_len``."""
+        if not self.canonical_bucket_exec:
+            return self.max_len
+        return max(self.max_len, self.bucketer.canonical_dim(self.max_len))
+
+    # ------------------------------------------------------------------
+    def _init_slots(self):
+        # one batched cache, slot b in row b of every leaf; decode masking
+        # is position-driven, so a tail past max_len is never attended to
+        self.cache = M.init_cache(self.cfg, self.max_batch, self.exec_len, device=self.device)
+        self.slot_req: List[Optional[Request]] = [None] * self.max_batch
+        self.slot_pos = [0] * self.max_batch
+
+    def _plain_wave(self, cache, toks, pos):
+        """The eager decode wave: logits (B, V); K/V written in place."""
+        logits, _ = M.decode_step(self.cfg, self.params, cache, toks[:, None], pos)
+        return logits[:, 0]
+
+    def _compile(self):
+        from ..core import ChunkConfig, ChunkedFunction
+
+        ev0 = self.plan_cache.evictions if self.plan_cache is not None else 0
+        wave_key = (self.max_batch, self.exec_len)
+        cached = self._wave_cache.get(wave_key)
+        if cached is not None:
+            # warm bucket: zero traces, zero searches
+            self._decode_wave, self.autochunk_result = cached
+            self.exec_stats["wave_reuses"] += 1
+            if self.canonical_bucket_exec:
+                stats.bump("bucket_exec_hits")
+            self._record_telemetry(hit=True)
+            self._maybe_evict(ev0)
+            return
+        if self.canonical_bucket_exec:
+            # this compile is the bucket's one boundary build (plain waves
+            # count too, so the ratios stay meaningful per engine)
+            stats.bump("bucket_exec_misses")
+            stats.bump("bucket_exec_compiles")
+        wave = self._plain_wave
+        if self.autochunk_budget is not None:
+            if self._chunked_fn is None:
+                # one transform for the engine's lifetime: reconfigure()
+                # compiles through it, reusing exact or bucketed plans.  The
+                # weights are argument 0 (graph inputs, not constants)
+                self._chunked_fn = ChunkedFunction(
+                    M.decode_fn(self.params),
+                    ChunkConfig.from_scalar(
+                        self.autochunk_budget, weight_argnums=(0,),
+                        canonical_bucket_exec=self.canonical_bucket_exec,
+                        cache_policy=self.cache_policy,
+                        cache_max_entries=self.cache_max_entries),
+                    cache=self.plan_cache, bucketer=self.bucketer)
+            B = self.max_batch
+            specs = (pytree.tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                                           device="meta"), self.cache),
+                     torch.empty((B,), dtype=torch.int64, device="meta"),
+                     torch.empty((B,), dtype=torch.int64, device="meta"))
+            # the cache specs are already at the bucket boundary: this is
+            # the bucket's compile
+            weights = dict(self.params.named_parameters())
+            compiled = self._chunked_fn.compile(weights, *specs)
+            self.autochunk_result = compiled.result
+
+            def wave(cache, toks, pos, _fn=compiled.fn, _w=weights):
+                return _fn(_w, cache, toks, pos)
+
+        self._decode_wave = wave
+        self.exec_stats["wave_compiles"] += 1
+        self._wave_cache[wave_key] = (self._decode_wave, self.autochunk_result)
+        self._record_telemetry(hit=False)
+        self._maybe_evict(ev0)
+
+    # ------------------------------------------------------------------
+    def _record_telemetry(self, *, hit: bool) -> None:
+        """Serving telemetry into the plan-cache entry's metadata."""
+        res = self.autochunk_result
+        if self.plan_cache is None or res is None or not res.cache_key:
+            return
+        self.plan_cache.record_use(res.cache_key, hit=hit, compile_s=res.elapsed_s,
+                                   bucket=self.exec_len)
+
+    def _maybe_evict(self, evictions_before: int = 0) -> int:
+        """Plan-cache eviction, only at idle points (construction and
+        ``reconfigure``); evictions the compile made count too."""
+        if self.plan_cache is None:
+            return 0
+        if self.cache_max_entries is not None:
+            self.plan_cache.evict(policy=self.cache_policy,
+                                  max_entries=self.cache_max_entries)
+        n = self.plan_cache.evictions - evictions_before
+        self.exec_stats["evicted"] += n
+        return n
+
+    def reconfigure(self, *, max_batch: Optional[int] = None,
+                    max_len: Optional[int] = None) -> None:
+        """Re-shape the slots (and the wave), only while idle.  Inside a
+        warm bucket the bucket's wave is reused outright; otherwise a warm
+        plan cache replays the stored plan instead of searching."""
+        if any(r is not None for r in self.slot_req) or self.waiting:
+            raise RuntimeError("reconfigure() requires an idle engine")
+        if max_batch is not None:
+            self.max_batch = max_batch
+        if max_len is not None:
+            self.max_len = max_len
+        self._init_slots()
+        self._compile()
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request):
+        self.waiting.append(req)
+
+    def _free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.slot_req) if r is None]
+
+    def _admit(self):
+        for slot in self._free_slots():
+            if not self.waiting:
+                break
+            req = self.waiting.pop(0)
+            toks = torch.tensor([req.prompt], dtype=torch.int64, device=self.device)
+            logits, cache1 = M.prefill(self.cfg, self.params, {"tokens": toks}, self.exec_len)
+            # the request's cache into its slot: row `slot` of every leaf
+            # (dim 1 of the stacked form, whose dim 0 is the layer)
+            bdim = 0 if isinstance(self.cache["layers"], list) else 1
+            for full, one in zip(pytree.tree_leaves(self.cache), pytree.tree_leaves(cache1)):
+                full.select(bdim, slot).copy_(one.select(bdim, 0))
+            req.generated.append(_sample(logits[0, -1:], self.greedy, self.generator)[0])
+            req.first_token_at = time.perf_counter()
+            self.slot_req[slot] = req
+            self.slot_pos[slot] = len(req.prompt)
+
+    def _retire(self):
+        for i, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            hit_eos = (req.eos_id is not None and req.generated
+                       and req.generated[-1] == req.eos_id)
+            if len(req.generated) >= req.max_new_tokens or hit_eos:
+                req.done = True
+                req.finished_at = time.perf_counter()
+                self.finished.append(req)
+                self.slot_req[i] = None
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def step(self) -> int:
+        """Admit -> decode one wave -> retire; returns the rows decoded."""
+        self._admit()
+        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        if not active:
+            return 0
+        toks = torch.tensor([r.generated[-1] if r is not None else 0 for r in self.slot_req],
+                            dtype=torch.int64, device=self.device)
+        pos = torch.tensor(self.slot_pos, dtype=torch.int64, device=self.device)
+        logits = self._decode_wave(self.cache, toks, pos)
+        self.n_decode_steps += 1
+        nxt = _sample(logits, self.greedy, self.generator)
+        for i in active:
+            self.slot_req[i].generated.append(int(nxt[i]))
+            self.slot_pos[i] += 1
+        self._retire()
+        return len(active)
+
+    def run(self, max_steps: int = 10_000) -> List[Request]:
+        for _ in range(max_steps):
+            if not self.waiting and all(r is None for r in self.slot_req):
+                break
+            self.step()
+        return self.finished
+
+    def metrics(self) -> dict:
+        """Aggregate serving metrics over finished requests."""
+        done = self.finished
+        toks = sum(len(r.generated) for r in done)
+        ttfts = [r.ttft_s for r in done if r.ttft_s is not None]
+        lats = [r.latency_s for r in done if r.latency_s is not None]
+        span = max((r.finished_at for r in done), default=0.0) - min(
+            (r.submitted_at for r in done), default=0.0)
+        out = {
+            "requests": len(done),
+            "tokens": toks,
+            "decode_waves": self.n_decode_steps,
+            "throughput_tok_s": toks / span if span > 0 else 0.0,
+            "mean_ttft_s": sum(ttfts) / len(ttfts) if ttfts else 0.0,
+            "mean_latency_s": sum(lats) / len(lats) if lats else 0.0,
+            "exec_len": self.exec_len,
+            "bucket_exec": dict(self.exec_stats),
+        }
+        if self.plan_cache is not None:
+            out["plan_cache"] = self.plan_cache.stats()
+            res = self.autochunk_result
+            if res is not None and res.cache_key:
+                out["plan_telemetry"] = self.plan_cache.entry_meta(res.cache_key)
+        return out
 
 
 @dataclass
@@ -111,13 +412,7 @@ class PagedServeEngine:
         from .kv_pool import KVPool
         from .prefix_cache import PrefixCache
 
-        for name, asked, item in (
-            ("autotune", autotune, "ROADMAP queue A item 7 (autotune)"),
-            ("mesh", mesh is not None, "ROADMAP queue A item 11 (mesh)"),
-            ("obs", obs, "ROADMAP queue A item 9 (observability)"),
-        ):
-            if asked:
-                raise NotImplementedError(f"{name} is not in the port yet: {item}")
+        _refuse_unported(autotune, mesh, obs)
         if spill_pages and not prefix_cache:
             raise ValueError("spill_pages requires prefix_cache=True")
         if cfg.family not in ("dense", "vlm") or cfg.mla or not cfg.causal:
@@ -126,8 +421,9 @@ class PagedServeEngine:
                 f" got family={cfg.family!r} mla={cfg.mla} causal={cfg.causal}"
             )
         if cfg.sliding_window is not None and cfg.sliding_window < max_len:
-            raise ValueError("paged serving keeps the full context; sliding-window"
-                             " archs need the slot engine (ROADMAP queue A item 8b)")
+            raise ValueError("paged serving keeps the full context; a sliding-window"
+                             " arch past its window is served by ServeEngine (ring"
+                             " caches of the window's width)")
         self.device = resolve_device(device)
         why = cuda_refusal(cfg.hd) if self.device.type == "cuda" else None
         if why is not None:
@@ -375,12 +671,7 @@ class PagedServeEngine:
                 st.kv_len += take
                 need_rows.append((row, st, False))
         if need_rows:
-            if self.greedy:
-                nxt = torch.argmax(logits, dim=-1)
-            else:
-                probs = torch.softmax(logits.float(), dim=-1)
-                nxt = torch.multinomial(probs, 1, generator=self.generator)[:, 0]
-            nxt = nxt.tolist()
+            nxt = _sample(logits, self.greedy, self.generator)
             now = time.perf_counter()
             for row, st, finished_prefill in need_rows:
                 st.req.generated.append(int(nxt[row]))

@@ -6,7 +6,7 @@ its shapes: attention at hd 32, 64, 80, 96, 128 and 256
 of the FFN kernel's f tile (``chunked_ffn.cuda_refusal``).  A phi3-mini
 block in float32 at its full width and S 8192, planned on ``meta`` for the
 card at budget 0.03, chunks its attention as the JAX package's plan does
-(ROADMAP C-3).  Elsewhere the site keeps its generic chunk
+(ROADMAP C-3) and ends within its budget (C-5).  Elsewhere the site keeps its generic chunk
 loop, counts a miss, and its output equals the undispatched program's.  The
 compiles run here on CPU tensors with ``kernel_target='cuda'``; with the
 default target, which follows the CPU inputs, the plain versions take any
@@ -114,15 +114,7 @@ def test_causal_gqa_hd96_targeted_at_the_card_keeps_its_loop(monkeypatch):
     assert calls
 
 
-def test_phi3_float32_block_plan_for_the_card_chunks_its_attention():
-    """ROADMAP C-3: one full-width phi3-mini block (hd 96) in float32 at
-    S 8192, traced on ``meta`` and planned for the card at budget 0.03 (the
-    per-block budget of the card's run), has one stage whose chunk loop
-    holds both the attention and the SwiGLU site, each dispatched.  The
-    JAX package's plan of the same block at the same budget also chunks
-    the attention (one stage over the attention alone, 128 chunks); the
-    port's chunks are smaller (1024 of 8 rows) because its estimator's
-    baseline peak is 0.62x the jaxpr's, so the same ratio is fewer bytes."""
+def _phi3_f32_block_planned():
     cfg = get_config("phi3-mini-3.8b").with_(dtype="float32", n_layers=1, scan_layers=False)
     p = M._index_tree(M.init_params(cfg, device="meta")["blocks"][0])
     x = torch.empty((1, 8192, cfg.d_model), device="meta")
@@ -131,12 +123,57 @@ def test_phi3_float32_block_plan_for_the_card_chunks_its_attention():
                                                  kernel_target="cuda", kernel_dispatch="on"))
     before = stats.snapshot()
     planned = cf.trace(p, x).search()
-    d = stats.delta(before)
+    return planned, stats.delta(before)
+
+
+def test_phi3_float32_block_plan_for_the_card_chunks_its_attention():
+    """ROADMAP C-3 and C-5: one full-width phi3-mini block (hd 96) in
+    float32 at S 8192, traced on ``meta`` and planned for the card at budget
+    0.03 (the per-block budget of the card's run), has one stage whose chunk
+    loop holds both the attention and the SwiGLU site, each dispatched, and
+    ends within its budget.  The JAX package's plan of the same block at the
+    same budget also chunks the attention (one stage over the attention
+    alone, 128 chunks).
+
+    Re-pinned for C-5: the plan was 1024 chunks of 8 rows and ended at
+    604,188,672 B against a 520,429,240 B budget, because selection capped a
+    dispatched body's charge at its generic estimate while the attention
+    kernel copied its full-length K and V (201,326,592 B) in every chunk.
+    Selection now charges the dispatched body as it is, and those copies are
+    made once, by graph nodes before the loop, so K and V's sources die
+    there: 16 chunks of 512 rows, 456,163,328 B."""
+    planned, d = _phi3_f32_block_planned()
     loops = {k.kind: (n.params["c"], n.params["n_iters"]) for n in planned.graph.nodes
              if is_chunk_loop(n) for k in n.params["dispatches"]}
     assert len(planned.plan.stages) == 1
-    assert loops == {"attention": (8, 1024), "swiglu": (8, 1024)}
+    assert loops == {"attention": (512, 16), "swiglu": (512, 16)}
     assert d["kernel_dispatch_misses"] == 0
+    assert planned.plan.final_peak <= planned.plan.budget_bytes
+
+
+def test_phi3_float32_block_copies_k_and_v_once_before_its_loop():
+    """C-5: the f32 phi3-mini block's dispatched graph makes the attention
+    kernel's contiguous K and V in two ``attention_kv_operand`` nodes just
+    before the chunk loop, which reads them in place of RoPE's K and the V
+    projection; those die at the copies, and the body's modeled peak holds
+    no full-length K or V.  The plan ends within its budget with both sites
+    dispatched."""
+    planned, d = _phi3_f32_block_planned()
+    g = planned.graph
+    (i_loop,) = [i for i, n in enumerate(g.nodes) if is_chunk_loop(n)]
+    loop = g.nodes[i_loop]
+    ops = [g.nodes[i_loop - 2], g.nodes[i_loop - 1]]
+    assert [op_name(n) for n in ops] == ["attention_kv_operand"] * 2
+    assert set(ops) <= set(loop.invars)
+    for op in ops:
+        (src,) = op.all_input_nodes
+        assert g.last_use[src] == g.nodes.index(op)
+        assert tuple(op.meta["val"].shape) == (32, 8192, 96)
+    kv_bytes = 2 * 32 * 8192 * 96 * 4
+    assert loop.params["body_peak"] < kv_bytes
+    assert sorted(k.kind for k in loop.params["dispatches"]) == ["attention", "swiglu"]
+    assert (d["kernel_dispatch_hits"], d["kernel_dispatch_misses"]) == (2, 0)
+    assert planned.plan.final_peak <= planned.plan.budget_bytes
 
 
 def test_phi3_float32_block_with_a_refused_head_dim_chunks_its_attention(monkeypatch):
@@ -202,6 +239,37 @@ def test_phi3_float32_block_with_a_refused_swiglu_charges_its_generic_ffn(monkey
         node = next(nd for nd in g2.nodes if is_chunk_loop(nd))
         assert KD.dispatch_node(node, g2, target="cuda") == 1
         assert cand.kernel_bytes(c_rows) == node.params["body_peak"]
+
+
+@pytest.mark.parametrize("window", [None, 24], ids=["causal", "window"])
+def test_heads_chunked_attention_dispatches_the_computed_band(window):
+    """A loop over attention heads (every query row in each chunk, K, V
+    sliced alike, the position mask shared by the heads) dispatches onto
+    ``computed_attention`` with its band from position 0, copies nothing
+    per chunk beyond its heads' share, and gives the undispatched program's
+    output (float32, 1e-5)."""
+    S, H, Kv, hd = 64, 4, 4, 32            # one query head a kv head, as phi3-mini
+
+    def attn(qkv):
+        q, k, v = qkv
+        pos = torch.arange(S, device=q.device)
+        return L.gqa_attention(q, k, v, q_pos=pos, kv_pos=pos, causal=True, window=window)
+
+    qkv = _qkv(hd, S, H=H, Kv=Kv, seed=3)
+    g, _ = trace(attn, [tuple(t.to("meta") for t in qkv)], weight_argnums=())
+    prof = estimate_memory(g)
+    at = next(i for i, n in enumerate(g.nodes) if op_name(n) == "_softmax")
+    cands = [c for c in search_chunks(g, prof, peak_node=at) if c.chunk_extent == Kv and
+             [op_name(g.nodes[i]) for i in c.in_loop].count("bmm") == 2]
+    assert cands, "no candidate chunks the kv heads through both products"
+    g2 = apply_chunk(g, cands[0], Kv)
+    loop = next(n for n in g2.nodes if is_chunk_loop(n))
+    before = stats.snapshot()
+    assert KD.dispatch_node(loop, g2, target="cuda") == 1
+    assert stats.delta(before)["kernel_dispatch_computed_mask"] == 1
+    from repro_torch.core.lowering import emit
+    (y,) = emit(g2)(*qkv)
+    np.testing.assert_allclose(y.numpy(), attn(qkv).numpy(), atol=ATOL)
 
 
 def _swiglu(w, x):
