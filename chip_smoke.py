@@ -12,7 +12,7 @@ the bf16 FFN kernel must have HGMMA, the bf16 SSD kernel HMMA or HGMMA,
 their f32 kernels, the mask's tile pre-pass and the RG-LRU kernels none),
 and drives the port's paths, four at
 gpt-paper's full width, one at minitron-4b's, four at phi3-mini-3.8b's,
-one at mamba2-1.3b's and two at recurrentgemma-9b's:
+two at mamba2-1.3b's and three at recurrentgemma-9b's:
 
 * serving: the paged engine, its kernel held against its plain version at
   the serving shapes (gpt-paper's and phi3-mini's heads) and at edge cases
@@ -105,13 +105,31 @@ one at mamba2-1.3b's and two at recurrentgemma-9b's:
   each block's peak within 5% of its prediction, the launches, peaks and
   times beside the unbudgeted forward, float32 per-block logits at 3 layers
   within 1e-3 of the unbudgeted ones and bf16 no further from float32 than
-  1.5 times the unbudgeted bf16 logits.
-  Both scans are first held against their plain versions (mamba2's shape,
-  a length the chunk does not divide, the reduced config's chunk 16, a
-  shape off every tile edge (p 48, n 64, chunk 100), and with dt and A
-  drawn as Mamba-2 initialises them mamba2's shape, 1000 rows and batch
-  2; recurrentgemma's shape, an odd length, batch 2 and a width that is
-  no multiple of the kernel's 32-channel tile; f32 and bf16 inputs).
+  1.5 times the unbudgeted bf16 logits;
+* the fixed-slot engine on both recurrent families (``[slot-ssm]``), bf16,
+  full width and depth, 2 slots, three requests each (the third in a freed
+  slot, over the first's state rows): mamba2-1.3b (prompts 8192, 1000 and
+  2000; f32 SSD states and conv windows) and recurrentgemma-9b (prompts
+  4096, 1000 and 600; RG-LRU states, and local-attention rings of 2048
+  rolled at prefill); each prefill per block under its forward's budget
+  (0.9, 0.1), the recurrent block under its own tag so that it hands back
+  its scan's final state, with ``ssd_scan``, ``rglru_scan`` and
+  ``computed_attention`` counted while serving; each block plan's peak
+  within 5% of its prediction on its layer's own input; the scans and the
+  attention kernel on those inputs against their plain versions; cache
+  bytes, TTFT, tok/s, decode waves and wave times; mamba2's wave compiled
+  at budget 0.5 beside the plain one; the requests again with the scans'
+  plain versions; float32 served logits at 4 and 3 layers within 1e-3 of
+  the forward over the sequence so far (across recurrentgemma's ring
+  wrap at position 4096); the serving CLI on both at reduced size.
+
+Before the SSM and hybrid paths, both scans are held against their plain
+versions (mamba2's shape, a length the chunk does not divide, the reduced
+config's chunk 16, a shape off every tile edge (p 48, n 64, chunk 100),
+and with dt and A drawn as Mamba-2 initialises them mamba2's shape, 1000
+rows and batch 2; recurrentgemma's shape, an odd length, batch 2 and a
+width that is no multiple of the kernel's 32-channel tile; f32 and bf16
+inputs).
 
 Each path runs with the kernels' launch counts zeroed just before and read
 just after.  Every kernel is timed beside its bound, its plain version and
@@ -1828,12 +1846,16 @@ SLOT = dict(arch="phi3-mini-3.8b", max_batch=2, max_len=8320,
                  "--second-max-len", "1500", "--device", "cuda"])
 
 
-def slot_requests(Request, vocab, seed):
+def make_requests(Request, vocab, seed, prompts, max_new):
     import numpy as np
 
     rng = np.random.default_rng(seed)
     return [Request(rid=i, prompt=rng.integers(0, vocab, n).tolist(), max_new_tokens=m)
-            for i, (n, m) in enumerate(zip(SLOT["prompts"], SLOT["max_new"]))]
+            for i, (n, m) in enumerate(zip(prompts, max_new))]
+
+
+def slot_requests(Request, vocab, seed):
+    return make_requests(Request, vocab, seed, SLOT["prompts"], SLOT["max_new"])
 
 
 def swap_plain(CA, CF):
@@ -2675,6 +2697,471 @@ def check_hybrid_budget_logits(torch, M, card):
     return dict(fp32_logits_err=err, bf16_vs_fp32_unchunked=err_u, bf16_vs_fp32_per_block=err_b)
 
 
+# ---------------------------------------------------------------------------
+# The fixed-slot engine on the recurrent families: mamba2-1.3b and
+# recurrentgemma-9b served at full width, each prefill on the scan kernels
+# ---------------------------------------------------------------------------
+
+# the models of phases 15 and 16, rebuilt from the same seeds; each prompt
+# list's first is past recurrentgemma's 2048-token window (the ring rolled
+# at prefill) and the third waits for a freed slot, whose state rows it
+# overwrites
+SLOT_SSM = dict(
+    max_batch=2, max_new=(64, 64, 32), wave_reps=10,
+    models={
+        "mamba2-1.3b": dict(seed=8, max_len=8320, prompts=(8192, 1000, 2000),
+                            budget=SSM_RUN["budget"], fp32_layers=SSM_RUN["check_layers"],
+                            wave_budget=0.5),
+        "recurrentgemma-9b": dict(seed=9, max_len=4352, prompts=(4096, 1000, 600),
+                                  budget=HYBRID_RUN["budget"],
+                                  fp32_layers=HYBRID_RUN["check_layers"], wave_budget=None),
+    },
+    cli=["--local", "--device", "cuda", "--max-batch", "2", "--requests", "3",
+         "--prompt-len", "64", "--max-new", "8", "--max-len", "128"])
+
+
+def prefill_tag(cfg, i):
+    """The per-block prefill's compile tag of layer ``i``."""
+    if cfg.family == "ssm":
+        return "ssm_prefill"
+    return "hyb_attn" if cfg.is_attention_layer(i) else "hyb_rg_prefill"
+
+
+def cache_bytes(torch, M, cfg, cache):
+    """Bytes of the engine's cache by leaf kind (K/V, states, conv windows),
+    and those the configuration gives: f32 states, conv windows of W-1 rows
+    and K/V rings in the model's dtype."""
+    got = collections.Counter()
+    layers = cache["layers"]
+    for c in ([layers] if isinstance(layers, dict) else layers):
+        for k, t in c.items():
+            got["kv" if k in ("k", "v") else k] += t.numel() * t.element_size()
+    B, item = SLOT_SSM["max_batch"], torch.tensor([], dtype=cfg.torch_dtype).element_size()
+    kinds = M.layer_kinds(cfg)
+    want = collections.Counter()
+    if cfg.family == "ssm":
+        want["state"] = B * cfg.n_layers * cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+        want["conv"] = (B * cfg.n_layers * (cfg.ssm_conv_width - 1)
+                        * (cfg.d_inner + 2 * cfg.ssm_state) * item)
+    else:
+        n_rg = kinds.count("rglru")
+        width = layers[kinds.index("local_attn")]["k"].shape[1]
+        want["kv"] = (B * (cfg.n_layers - n_rg) * 2 * width * cfg.n_kv_heads * cfg.hd * item)
+        want["state"] = B * n_rg * cfg.d_model * 4
+        want["conv"] = B * n_rg * (cfg.rglru_conv_width - 1) * cfg.d_model * item
+    return dict(got), dict(want)
+
+
+def hold_ssd_call(torch, SS, label, args, kw, errs, card):
+    """One captured ``ssd_scan`` call against its plain version: y within
+    the scan limit of its dtype, the final state within the f32 one."""
+    x, dt, A, B, C = args
+    q = min(kw.get("chunk", 128), x.shape[1])
+    y, st = SS.ssd_scan(*args, **kw)
+    torch.cuda.synchronize()
+    y0, st0 = SS.ssd_scan_plain(x, dt, A, B, C, q)
+    acum, carry = chunk_cumsums(torch, dt, A, q)
+    terms = q + B.shape[-1] + acum
+    dt_name = str(x.dtype).removeprefix("torch.")
+    lab = f"{label} {dt_name} s={x.shape[1]} chunk={q} max|a_cum|={acum:.1f}"
+    tol, why = scan_tol(dt_name, terms, y0)
+    errs["ssd_scan", dt_name] = max(errs.get(("ssd_scan", dt_name), 0.0),
+                                    compare(torch, "ssd_scan", f"y {lab}", y, y0, tol,
+                                            f"{why}; {card}"))
+    tol, why = scan_tol("float32", terms, st0)
+    errs["ssd_scan", "state"] = max(errs.get(("ssd_scan", "state"), 0.0),
+                                    compare(torch, "ssd_scan", f"state {lab}", st, st0, tol,
+                                            f"{why}; {card}"))
+
+
+def recurrent_block_plans(torch, CA, SS, RS, M, cfg, model, prompts, errs, card):
+    """For each prompt length the engine served (``prompts``: length -> a
+    prompt), each prefill block's plan (replayed, no search) on the first
+    layer of its kind, fed that layer's own input: stages, dispatched
+    loops, the predicted against the measured peak (within 5%); and the
+    kernels on those inputs against their plain versions: the scan of the
+    eager block (the compiled block calls the kernel op directly) and, for
+    the hybrid, ``computed_attention`` as the compiled attention block calls
+    it.  The plan is the one serving compiled for that shape; tracing it
+    again replays it, or searches again where a sibling length of its
+    shape bucket replaced the bucket's plan, and must find the same."""
+    from repro_torch.core import stats
+
+    cfs = {key[2]: cf for key, cf in M._AC_CACHE.items()}
+    tags = {prefill_tag(cfg, i) for i in range(cfg.n_layers)}
+    check(tags <= set(cfs), f"prefill plans {sorted(cfs)}, want {sorted(tags)}")
+    out = {}
+    for S, prompt in prompts.items():
+        h = M.embed_inputs(cfg, model, {"tokens": torch.tensor([prompt], device="cuda")})[0]
+        inputs = {}
+        with torch.no_grad():
+            for i in range(cfg.n_layers):
+                tag = prefill_tag(cfg, i)
+                p = M._index_tree(model["blocks"], i) if cfg.scan_layers else \
+                    M._index_tree(model["blocks"][i])
+                inputs.setdefault(tag, (i, p, h))
+                if len(inputs) == len(tags):
+                    break
+                y = cfs[tag](p, h)
+                h = y if tag == "hyb_attn" else y[0]
+        out[S] = {}
+        for tag, (i, p, x) in inputs.items():
+            cf = cfs[tag]
+            served = cf._compiled[cf._shape_key((p, x))].result
+            before = stats.snapshot()
+            planned = cf.trace(p, x).search()
+            searched = stats.delta(before)["search_passes"]
+            loops = block_loops(planned)
+            pred, stages = served.final_peak, len(served.plan)
+            check(len(planned.plan.stages) == stages and planned.final_peak == pred,
+                  f"{tag} S={S}: traced again, {len(planned.plan.stages)} stages and"
+                  f" {planned.final_peak} B; served {stages} and {pred} B")
+            del planned
+            with torch.no_grad():
+                cf(p, x)
+                _, peak, ms = measure_forward(torch, cf, (p, x))
+            attn = loops.get("attention", (0, 0))
+            print(f"[slot-ssm] {cfg.name} block plan {tag} S={S} budget {cfg.autochunk_budget}"
+                  f" (layer {i}'s own input; traced again: {searched} search passes):"
+                  f" {stages} stages, dispatched loops {loops};"
+                  f" activation peak {peak} B against predicted"
+                  f" {pred} B ({peak / pred:.4f}x); {ms:.2f} ms; {card}")
+            check(abs(peak - pred) <= 0.05 * pred,
+                  f"{cfg.name} {tag} S={S}: peak {peak} B not within 5% of the predicted"
+                  f" {pred} B")
+            with torch.no_grad():
+                if tag == "ssm_prefill":
+                    (call,) = capture_calls(torch, SS, "ssd_scan",
+                                            lambda: M.ssm_block_state(cfg, p, x))
+                    hold_ssd_call(torch, SS, f"slot prefill S={S} layer {i}", *call, errs, card)
+                elif tag == "hyb_rg_prefill":
+                    ((a, b), kw), = capture_calls(torch, RS, "rglru_scan",
+                                                  lambda: M.rg_block_state(cfg, p, x))
+                    dt_name = str(a.dtype).removeprefix("torch.")
+                    err = hold(torch, "rglru_scan", f"slot prefill S={S} layer {i} {dt_name}"
+                               f" D={a.shape[2]}", lambda: RS.rglru_scan(a, b, **kw),
+                               lambda: RS.rglru_scan_plain(a, b), TOL["float32"])
+                    errs["rglru_scan", dt_name] = max(errs.get(("rglru_scan", dt_name), 0.0),
+                                                      err)
+                else:
+                    comp = []
+                    masked = capture_calls(torch, CA, "masked_attention", lambda: comp.extend(
+                        capture_calls(torch, CA, "computed_attention", lambda: cf(p, x))))
+                    for kname, kcalls in (("computed_attention", comp),
+                                          ("masked_attention", masked)):
+                        for j, (args, kw) in enumerate(kcalls):
+                            dt_name = str(args[0].dtype).removeprefix("torch.")
+                            err = hold(torch, kname, f"slot prefill S={S} layer {i} call {j}"
+                                       f" {dt_name} Sq={args[0].shape[1]} Skv={args[1].shape[1]}"
+                                       f" H={args[0].shape[0]} Kv={args[1].shape[0]}"
+                                       f" hd={args[0].shape[2]}",
+                                       lambda: getattr(CA, kname)(*args, **kw),
+                                       lambda: getattr(CA, f"{kname}_plain")(*args, **kw),
+                                       TOL[dt_name])
+                            errs[kname, dt_name] = max(errs.get((kname, dt_name), 0.0), err)
+                    check(len(comp) + len(masked) == attn[1],
+                          f"{tag} S={S}: {len(comp)} + {len(masked)} attention calls, plan"
+                          f" {attn}")
+            out[S][tag] = dict(layer=i, stages=stages, loops={k: list(v) for k, v in loops.items()},
+                               pred_peak=pred, peak=peak, ms=ms)
+        del h, inputs
+    return out
+
+
+def recurrent_wave(torch, M, ServeEngine, stats, cfg, model, engine, reqs, flush, card):
+    """mamba2's decode wave compiled at its ``wave_budget`` beside the plain
+    wave, from the same cache, tokens and positions: build time, stages,
+    dispatch hits and misses; both bf16 waves against the float32 wave of
+    the same weights and cache (the compiled no further than 1.5x the
+    plain); the caches the two wrote."""
+    run = SLOT_SSM["models"][cfg.name]
+    before = stats.snapshot()
+    t0 = time.perf_counter()
+    e2 = ServeEngine(cfg, model, max_batch=SLOT_SSM["max_batch"], max_len=run["max_len"],
+                     autochunk_budget=run["wave_budget"], device="cuda")
+    build = time.perf_counter() - t0
+    dw = stats.delta(before)
+    res = e2.autochunk_result
+    for full, mine in zip(torch.utils._pytree.tree_leaves(e2.cache),
+                          torch.utils._pytree.tree_leaves(engine.cache)):
+        full.copy_(mine)
+    # slot 0 holds rid 2 (admitted into the first freed slot), slot 1 rid 1
+    toks = torch.tensor([reqs[2].generated[-1], reqs[1].generated[-1]], device="cuda")
+    pos = torch.tensor([len(r.prompt) + len(r.generated) for r in (reqs[2], reqs[1])],
+                       device="cuda")
+    print(f"[slot-ssm] {cfg.name} compiled wave (budget {run['wave_budget']}): built in"
+          f" {build:.2f}s ({dw['trace_calls']} trace, {dw['search_passes']} search passes),"
+          f" {len(res.plan)} stages, predicted peak {res.baseline_peak} -> {res.final_peak} B"
+          f" (budget {res.budget_bytes} B); dispatch hits {dw['kernel_dispatch_hits']}, misses"
+          f" {dw['kernel_dispatch_misses']}; {card}")
+    with torch.no_grad():
+        params32 = {k: v.float() for k, v in model.named_parameters()}
+        # a copy of every leaf (the f32 states too): the wave writes it
+        cache32 = torch.utils._pytree.tree_map(
+            lambda t: t.to(torch.float32, copy=True), e2.cache)
+        ref = M.decode_fn(model)(params32, cache32, toks, pos)[:, :cfg.vocab_size]
+        del params32, cache32
+        torch.cuda.empty_cache()
+        plain = engine._decode_wave(engine.cache, toks, pos)[:, :cfg.vocab_size]
+        comp = e2._decode_wave(e2.cache, toks, pos)[:, :cfg.vocab_size]
+    err = float((comp.float() - plain.float()).abs().max())
+    d_comp = float((comp.float() - ref).abs().max())
+    d_plain = float((plain.float() - ref).abs().max())
+    cache_err = max(float((a.float() - b.float()).abs().max()) for a, b in
+                    zip(torch.utils._pytree.tree_leaves(e2.cache),
+                        torch.utils._pytree.tree_leaves(engine.cache)))
+    print(f"[slot-ssm] {cfg.name} compiled wave against the plain one, bf16 logits: max_abs_err"
+          f" {err:.3e}; from the float32 wave: compiled {d_comp:.3e}, plain {d_plain:.3e} (limit"
+          f" 1.5x the plain's); caches after the wave max_abs_err {cache_err:.3e}")
+    check(bool(torch.isfinite(comp).all()) and d_comp <= 1.5 * d_plain,
+          f"{cfg.name} compiled wave {d_comp} from float32, plain {d_plain}")
+    with torch.no_grad():
+        ms = time_ms(torch, lambda: e2._decode_wave(e2.cache, toks, pos), flush,
+                     reps=SLOT_SSM["wave_reps"])
+    del e2
+    torch.cuda.empty_cache()
+    return dict(build_s=build, stages=len(res.plan), pred_peak0=res.baseline_peak,
+                pred_peak1=res.final_peak, dispatch_hits=dw["kernel_dispatch_hits"],
+                dispatch_misses=dw["kernel_dispatch_misses"], err=err, err_from_fp32=d_comp,
+                plain_err_from_fp32=d_plain, cache_err=cache_err, ms=ms)
+
+
+def recurrent_fp32_logits(torch, M, ServeEngine, Request, arch, card):
+    """At the run's float32 depth: rid 0 served alone, its decode logits at
+    the first wave, the second and the last against the forward over its
+    sequence so far (limit 1e-3; for recurrentgemma the first wave writes
+    position 4096, a multiple of its 2048-token ring, and the second reads
+    across it); for mamba2 also the wave compiled at its ``wave_budget``
+    against the plain one (float32 ``TOL``, caches within 1e-4)."""
+    from repro_torch.configs import get_config
+
+    run = SLOT_SSM["models"][arch]
+    cfg = get_config(arch).with_(dtype="float32", n_layers=run["fp32_layers"])
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(run["seed"]),
+                          device="cuda")
+    M._AC_CACHE.clear()
+    engine = ServeEngine(cfg.with_(autochunk_budget=run["budget"]), model,
+                         max_batch=SLOT_SSM["max_batch"], max_len=run["max_len"], device="cuda")
+    (req,) = make_requests(Request, cfg.vocab_size, run["seed"], run["prompts"][:1],
+                           SLOT_SSM["max_new"][:1])
+    waves = {"first": 0, "second": 1, "last": req.max_new_tokens - 2}
+    kept, wave = {}, engine._decode_wave
+
+    def spy(cache, toks, pos):
+        logits = wave(cache, toks, pos)
+        for name, at in waves.items():
+            if engine.n_decode_steps == at:
+                kept[name] = (int(pos[0]), logits[0].float().clone())
+        return logits
+
+    engine._decode_wave = spy
+    engine.submit(req)
+    engine.run()
+    check(req.done and len(req.generated) == req.max_new_tokens,
+          f"fp32 {arch} serving: the request did not finish")
+    out = {}
+    if run["wave_budget"] is not None:
+        e2 = ServeEngine(cfg, model, max_batch=SLOT_SSM["max_batch"], max_len=run["max_len"],
+                         autochunk_budget=run["wave_budget"], device="cuda")
+        for full, mine in zip(torch.utils._pytree.tree_leaves(e2.cache),
+                              torch.utils._pytree.tree_leaves(engine.cache)):
+            full.copy_(mine)
+        toks = torch.tensor([req.generated[-1], 0], device="cuda")
+        pos = torch.tensor([len(req.prompt) + len(req.generated) - 1, 0], device="cuda")
+        with torch.no_grad():
+            want = wave(engine.cache, toks, pos)[:, :cfg.vocab_size]
+            got = e2._decode_wave(e2.cache, toks, pos)[:, :cfg.vocab_size]
+        out["compiled_wave_err"] = compare(
+            torch, "decode wave", f"{arch} fp32 L={cfg.n_layers} compiled (budget"
+            f" {run['wave_budget']}, {len(e2.autochunk_result.plan)} stages) against plain",
+            got, want, TOL["float32"])
+        out["compiled_wave_cache_err"] = max(
+            float((a - b).abs().max()) for a, b in zip(torch.utils._pytree.tree_leaves(e2.cache),
+                                                       torch.utils._pytree.tree_leaves(engine.cache)))
+        print(f"[slot-ssm] {arch} fp32 caches after the wave: max_abs_err"
+              f" {out['compiled_wave_cache_err']:.3e} (limit 1e-4)")
+        check(out["compiled_wave_cache_err"] <= 1e-4,
+              f"the compiled {arch} wave wrote another cache")
+        del e2
+    seq = req.prompt + req.generated
+    errs = {}
+    with torch.no_grad():
+        for name, (pos, got) in kept.items():
+            toks = torch.tensor([seq[:pos + 1]], device="cuda")
+            want = M.forward(cfg, model, {"tokens": toks})[0][0, -1]
+            errs[name] = float((got[:cfg.vocab_size] - want[:cfg.vocab_size].float())
+                               .abs().max())
+            del want
+            torch.cuda.empty_cache()
+    print(f"[slot-ssm] {arch} fp32 L={cfg.n_layers}: rid 0 decode logits against forward over"
+          f" the sequence so far: " + ", ".join(f"{k} wave (position {kept[k][0]}) {v:.3e}"
+                                                for k, v in errs.items())
+          + f" (limit 1e-3); {card}")
+    check(max(errs.values()) <= 1e-3, f"fp32 {arch} served logits differ from the forward:"
+          f" {errs}")
+    M._AC_CACHE.clear()
+    del engine, model
+    torch.cuda.empty_cache()
+    return out | {f"{k}_position": kept[k][0] for k in kept} | {f"{k}_err": v
+                                                               for k, v in errs.items()}
+
+
+def serve_recurrent(torch, CA, SS, RS, stats, M, flush, card, arch):
+    """One recurrent model at full width and depth, bf16, through
+    ``ServeEngine``: 2 slots, three requests (the third in a freed slot),
+    each prefill per block under the run's budget with the launch counts
+    zeroed just before serving and read just after; the block plans and
+    the kernels on the layers' own inputs; the same requests with the plain
+    versions swapped in (the prefill unbudgeted: the compiled blocks call
+    the scan ops directly); the plain wave's time and, for mamba2, the
+    compiled wave; float32 served logits at the run's depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Request, ServeEngine
+
+    run = SLOT_SSM["models"][arch]
+    cfg = get_config(arch)                                   # bf16, full depth
+    cfg_ac = cfg.with_(autochunk_budget=run["budget"])
+    kinds = M.layer_kinds(cfg)
+    n_rec, n_attn = sum(k != "local_attn" for k in kinds), kinds.count("local_attn")
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(run["seed"]),
+                          device="cuda")
+    M._AC_CACHE.clear()
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg_ac, model, max_batch=SLOT_SSM["max_batch"], max_len=run["max_len"],
+                         device="cuda")
+    build_s = time.perf_counter() - t0
+    exec_len = engine.exec_len
+    got, want = cache_bytes(torch, M, cfg, engine.cache)
+    print(f"[slot-ssm] {arch} engine built in {build_s:.2f}s: {SLOT_SSM['max_batch']} slots,"
+          f" max_len {run['max_len']}, exec_len {exec_len}, cache bytes {got} (from the"
+          f" configuration {want}); {n_rec} recurrent and {n_attn} attention layers")
+    check(got == want, f"{arch} slot cache {got}, want {want}")
+
+    reqs = make_requests(Request, cfg.vocab_size, run["seed"], run["prompts"],
+                         SLOT_SSM["max_new"])
+    torch.cuda.synchronize()
+    SS.ssd_scan.launches = RS.rglru_scan.launches = 0
+    CA.computed_attention.launches = CA.masked_attention.launches = 0
+    before = stats.snapshot()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"ssd_scan": SS.ssd_scan.launches, "rglru_scan": RS.rglru_scan.launches,
+                "computed_attention": CA.computed_attention.launches,
+                "masked_attention": CA.masked_attention.launches}
+    d = stats.delta(before)
+    max_new = SLOT_SSM["max_new"]
+    toks = sum(len(r.generated) for r in reqs)
+    check(all(r.done and len(r.generated) == m for r, m in zip(reqs, max_new)),
+          f"{arch} slot serving: a request did not finish with its new tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          f"{arch} slot serving: a token outside the vocabulary")
+    waves = engine.n_decode_steps
+    check(waves == max_new[0] - 1 + max_new[2] - 1, f"{arch} slot serving: {waves} waves")
+    ttft = {r.rid: r.ttft_s for r in reqs}
+    print(f"[slot-ssm] {arch} served {len(reqs)} requests (prompts {run['prompts']}, new"
+          f" {max_new}) on {SLOT_SSM['max_batch']} slots, prefill per block at budget"
+          f" {run['budget']}: {toks} tokens in {wall:.3f}s = {toks / wall:.1f} tok/s, {waves}"
+          f" decode waves; TTFT {', '.join(f'rid {k} {v:.3f}s' for k, v in ttft.items())};"
+          f" block compiles {d['search_passes']} search passes; {card}")
+
+    errs = {}
+    first = {}
+    for r in reqs:
+        first.setdefault(len(r.prompt), r.prompt)
+    plans = recurrent_block_plans(torch, CA, SS, RS, M, cfg_ac, model, first, errs, card)
+    scan = "ssd_scan" if cfg.family == "ssm" else "rglru_scan"
+    want_scan = len(reqs) * n_rec
+    want_attn = sum(n_attn * plans[len(r.prompt)]["hyb_attn"]["loops"].get(
+        "attention", [0, 0])[1] for r in reqs) if n_attn else 0
+    print(f"[slot-ssm] {arch} launches while serving: {launches} ({scan} = {len(reqs)} prefills"
+          f" x {n_rec} layers = {want_scan}; computed_attention + masked_attention = sum over"
+          f" the prefills of {n_attn} layers x attention chunks = {want_attn})")
+    check(launches[scan] == want_scan and launches["computed_attention"]
+          + launches["masked_attention"] == want_attn,
+          f"{arch} launches {launches}: {scan} want {want_scan}, attention want {want_attn}")
+    check(cfg.family == "ssm" or launches["computed_attention"] > 0,
+          f"{arch}: no prefill ran computed_attention")
+
+    # the plain wave's time, from the cache the run left
+    toks_w = torch.tensor([reqs[2].generated[-1], reqs[1].generated[-1]], device="cuda")
+    pos_w = torch.tensor([len(r.prompt) + len(r.generated) for r in (reqs[2], reqs[1])],
+                         device="cuda")
+    wave = None
+    if run["wave_budget"] is not None:
+        wave = recurrent_wave(torch, M, ServeEngine, stats, cfg_ac, model, engine, reqs, flush,
+                              card)
+    with torch.no_grad():
+        ms = time_ms(torch, lambda: engine._decode_wave(engine.cache, toks_w, pos_w), flush,
+                     reps=SLOT_SSM["wave_reps"])
+    print(f"[slot-ssm] {arch} decode wave {ms:.3f} ms plain"
+          + (f", {wave['ms']:.3f} ms compiled" if wave else "")
+          + f" (CUDA-event medians of {SLOT_SSM['wave_reps']}, 2 rows, {cfg.n_layers} layers);"
+          f" {card}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # the same requests with the scans' plain versions swapped in
+    # (information); the prefill unbudgeted, so that the model calls the
+    # scans' module functions (a compiled block calls the ops) and the
+    # attention runs generic
+    e_plain = ServeEngine(cfg, model, max_batch=SLOT_SSM["max_batch"], max_len=run["max_len"],
+                          device="cuda")
+    plain_reqs = [Request(rid=100 + r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+                  for r in reqs]
+    for r in plain_reqs:
+        e_plain.submit(r)
+    run_plain(SS, RS, e_plain.run)
+    same = sum(a == b for r, rp in zip(reqs, plain_reqs)
+               for a, b in zip(r.generated, rp.generated))
+    print(f"[slot-ssm] {arch} the same requests with the plain versions swapped in (prefill"
+          f" unbudgeted): {same} of {toks} tokens equal to the kernels'")
+    del e_plain, model
+    M._AC_CACHE.clear()
+    torch.cuda.empty_cache()
+    fp32 = recurrent_fp32_logits(torch, M, ServeEngine, Request, arch, card)
+    return dict(build_s=build_s, exec_len=exec_len, cache_bytes=got,
+                wall_s=wall, tokens=toks, tok_s=toks / wall, decode_waves=waves, ttft_s=ttft,
+                launches=launches, plans={str(k): v for k, v in plans.items()},
+                plain_swapped_equal=same, wave_ms=ms, compiled_wave=wave, fp32=fp32,
+                errs=errs)
+
+
+def recurrent_cli(torch):
+    """``serve.main`` without ``--paged`` on the card, each recurrent family
+    at reduced size: its ``[serve]`` requests line."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    out = {}
+    for arch in SLOT_SSM["models"]:
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            serve.main(["--arch", arch] + SLOT_SSM["cli"])
+        lines = [ln for ln in text.getvalue().splitlines() if ln.startswith("[serve]")]
+        for ln in lines:
+            print(f"[slot-ssm] CLI {arch}: {ln}")
+        check(any(re.match(r"\[serve\] 3 requests, 24 tokens ", ln) for ln in lines),
+              f"the serving CLI did not serve {arch}")
+        out[arch] = lines
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_slot_ssm_phase(torch, CA, SS, RS, stats, M, flush, card):
+    """mamba2-1.3b, then recurrentgemma-9b (the first freed before the
+    second is built), then the CLI at reduced size."""
+    out = {arch: serve_recurrent(torch, CA, SS, RS, stats, M, flush, card, arch)
+           for arch in SLOT_SSM["models"]}
+    out["cli"] = recurrent_cli(torch)
+    return out
+
+
 def time_scans(torch, SS, RS, flush, card):
     """Each scan at its model's shape, CUDA-event medians with L2 flushed,
     beside its bound and its plain version (no one PyTorch call computes
@@ -3027,6 +3514,20 @@ def main() -> int:
     hyb_budget.update(check_hybrid_budget_logits(torch, M, card))
     torch.cuda.empty_cache()
 
+    # ---- 16c. the fixed-slot engine on mamba2-1.3b and recurrentgemma-9b --
+    # (counts zeroed just before serving, read just after); the prefill
+    # block plans, the kernels on the layers' own inputs, the plain versions
+    # swapped in, mamba2's compiled wave, fp32 at reduced depth, the CLI
+    slot_ssm = run_slot_ssm_phase(torch, CA, SS, RS, stats, M, flush, card)
+    for arch in SLOT_SSM["models"]:
+        for (kname, dt_name), err in slot_ssm[arch].pop("errs").items():
+            table = {"ssd_scan": ssd_err, "rglru_scan": rglru_err}.get(kname, None)
+            if table is None:
+                attn_err[(kname, dt_name)] = max(attn_err.get((kname, dt_name), 0.0), err)
+            else:
+                table[dt_name] = max(table.get(dt_name, 0.0), err)
+    torch.cuda.empty_cache()
+
     # ---- 17. the scans' times at their models' shapes ---------------------
     scan_timed = time_scans(torch, SS, RS, flush, card)
 
@@ -3060,7 +3561,13 @@ def main() -> int:
             "rglru_scan": rglru_err}
     for (kname, dt_name), err in attn_err.items():
         errs.setdefault(kname, {})[dt_name] = err
+    # launches while serving the recurrent families through the slot engine
+    slot_ssm_launches = {
+        "ssd_scan": slot_ssm["mamba2-1.3b"]["launches"]["ssd_scan"],
+        "rglru_scan": slot_ssm["recurrentgemma-9b"]["launches"]["rglru_scan"],
+        "computed_attention": slot_ssm["recurrentgemma-9b"]["launches"]["computed_attention"]}
     print("kernels: " + json.dumps([{"name": k, "launches": n,
+                                     "slot_ssm_launches": slot_ssm_launches.get(k, 0),
                                      "max_err_bf16": errs[k]["bfloat16"],
                                      "max_err_fp32": errs[k]["float32"]}
                                     for k, n in launch_counts.items()]))
@@ -3104,6 +3611,9 @@ def main() -> int:
     entries[1]["hybrid_budget_forward"] = hyb_budget
     entries[1]["phi3_forward"] = phi3
     entries[1]["slot_serve"] = slot
+    entries[1]["slot_ssm_serve"] = {
+        "launches": slot_ssm_launches["computed_attention"],
+        "plans": slot_ssm["recurrentgemma-9b"]["plans"]}
     for i, kname in ((1, "computed_attention"), (2, "masked_attention")):
         entries[i]["head_dim_shapes"] = {k: t[kname] for k, t in hd_timed.items()}
     entries[1]["tensor_core_instructions"] = routes["chunked_attention"]
@@ -3127,7 +3637,8 @@ def main() -> int:
         "slot_serve": {k: slot[k] for k in ("chunked_ffn_launches", "plans")},
         "tensor_core_instructions": routes["chunked_ffn"],
     })
-    for kname, line, run in (("ssd_scan", 78, ssm), ("rglru_scan", 49, hyb)):
+    for kname, line, run, arch in (("ssd_scan", 78, ssm, "mamba2-1.3b"),
+                                   ("rglru_scan", 49, hyb, "recurrentgemma-9b")):
         t = scan_timed[kname]
         entries.append({
             "name": kname,
@@ -3141,9 +3652,11 @@ def main() -> int:
             "max_err_fp32": errs[kname]["float32"],
             "shape": dict(t["shape"], bytes=t["bytes"], operations=t["operations"]),
             "forward": run,
+            "slot_ssm_serve": slot_ssm[arch],
             "tensor_core_instructions": routes[kname],
         })
     entries[-2]["max_err_state_fp32"] = ssd_err["state"]
+    entries[-2]["slot_ssm_cli"] = slot_ssm["cli"]
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

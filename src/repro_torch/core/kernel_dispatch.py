@@ -1035,15 +1035,20 @@ def dispatch_node(node: ChunkLoopNode, g: Optional[Graph] = None, outer=None, *,
     return len(records)
 
 
+def _is_mutable(node) -> bool:
+    return getattr(getattr(node.target, "_schema", None), "is_mutable", False)
+
+
 def _mutates(loop: ChunkLoopNode) -> bool:
-    return any(getattr(getattr(op.node.target, "_schema", None), "is_mutable", False)
-               for op in loop.params["body"])
+    return any(_is_mutable(op.node) for op in loop.params["body"])
 
 
 def _prune_graph(g: Graph) -> Graph:
     """Fixpoint dead-node elimination after dispatch: node-input pruning can
     orphan whole prefix chains (a mask's, a repeated K's), and a kernel
-    reading through another loop's output can leave that loop unread."""
+    reading through another loop's output can leave that loop unread.  An
+    in-place write (a decode wave's ``index_put_`` or ``copy_`` into its
+    cache) stays though nothing reads it."""
     from .graph import node_ins
 
     nodes = list(g.nodes)
@@ -1052,7 +1057,8 @@ def _prune_graph(g: Graph) -> Graph:
         for n in nodes:
             consumed.update(node_ins(n))
         keep = [n for n in nodes if n in consumed or (
-            is_chunk_loop(n) and (_mutates(n) or any(v in consumed for v in n.outvars)))]
+            (_mutates(n) or any(v in consumed for v in n.outvars)) if is_chunk_loop(n)
+            else _is_mutable(n))]
         if len(keep) == len(nodes):
             break
         nodes = keep

@@ -1,6 +1,6 @@
 """Model assembly: init and full-sequence forward of the dense, SSM and
-hybrid families; the serving caches, decode step and prefill of the dense
-and vlm families.
+hybrid families; the serving caches, decode step and prefill of the dense,
+vlm, SSM and hybrid families.
 
 Parameters live in a :class:`Model` (an ``nn.Module``) whose ``state_dict``
 keys follow the JAX package's pytree paths: ``blocks.0.attn.wq`` for the
@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils import _pytree as pytree
 
@@ -185,17 +186,29 @@ def dense_block_full(cfg, p, x, positions=None, *, window=None, causal=None):
 
 
 def ssm_block_full(cfg, p, x):
+    return ssm_block_state(cfg, p, x)[0]
+
+
+def ssm_block_state(cfg, p, x):
+    """The SSM block that also hands back its scan's final f32 state (the
+    prefill's); the same operations as :func:`ssm_block_full`."""
     h = L.apply_norm(cfg, x, p["ln1"])
-    y, _ = SSM.ssm_block(cfg, p["ssm"], h)
-    return x + y
+    y, (state, _) = SSM.ssm_block(cfg, p["ssm"], h)
+    return x + y, state
 
 
 def rg_block_full(cfg, p, x):
+    return rg_block_state(cfg, p, x)[0]
+
+
+def rg_block_state(cfg, p, x):
+    """The RG-LRU block that also hands back its recurrence's final f32
+    state (the prefill's); the same operations as :func:`rg_block_full`."""
     h = L.apply_norm(cfg, x, p["ln1"])
-    y, _ = RG.recurrent_block(cfg, p["rec"], h)
+    y, (state, _) = RG.recurrent_block(cfg, p["rec"], h)
     x = x + y
     h = L.apply_norm(cfg, x, p["ln2"])
-    return x + L.mlp(cfg, p["mlp"], h)
+    return x + L.mlp(cfg, p["mlp"], h), state
 
 
 # ===========================================================================
@@ -304,18 +317,15 @@ def forward(cfg: ModelConfig, params: Model, batch, *, window: Optional[int] = N
 
 
 # ===========================================================================
-# KV caches (serving)
+# KV / state caches (serving)
 # ===========================================================================
 # A cache spec is a ``meta`` tensor (the port's ShapeDtypeStruct); a cache
-# is the same tree of zero tensors on a device.  The cache dtype is the
-# model's.
+# is the same tree of zero tensors on a device.  K/V and conv windows are in
+# the model's dtype, the SSM and RG-LRU states in f32.
 
-_DECODE_LATER = "ROADMAP queue A item 10"
-
-
-def _no_decode(what: str, part: str):
-    return NotImplementedError(f"{what}: the port's decode has the dense and vlm families"
-                               f" ({_DECODE_LATER} {part})")
+def _no_decode(what: str):
+    return NotImplementedError(f"{what}: the port's decode has the dense, vlm, ssm and"
+                               " hybrid families (ROADMAP queue A item 10 (c))")
 
 
 def cache_width(cfg: ModelConfig, max_len: int) -> int:
@@ -332,13 +342,16 @@ def _spec(shape, dtype):
 
 def layer_cache_spec(cfg: ModelConfig, kind: str, batch: int, width: int):
     """One layer's cache spec: ``{"k", "v"}`` of (batch, width, Kv, hd) for
-    ``attn``; ``local_attn`` caps the width at ``cfg.local_window``."""
+    ``attn``; ``local_attn`` caps the width at ``cfg.local_window``;
+    ``{"state", "conv"}`` for ``ssm`` and ``rglru``."""
     if kind in ("ssm", "rglru"):
-        raise _no_decode(f"the {kind} state cache", "(b)")
+        specs = SSM.ssm_state_specs if kind == "ssm" else RG.rglru_state_specs
+        state, conv = specs(cfg, batch)
+        return {"state": state, "conv": conv}
     if kind not in ("attn", "local_attn"):
         raise ValueError(kind)
     if cfg.mla:
-        raise _no_decode("the MLA latent cache", "(c)")
+        raise _no_decode("the MLA latent cache")
     w = min(width, cfg.local_window) if kind == "local_attn" else width
     shape = (batch, w, cfg.n_kv_heads, cfg.hd)
     return {"k": _spec(shape, cfg.torch_dtype), "v": _spec(shape, cfg.torch_dtype)}
@@ -386,8 +399,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
 
 
 def _layer_cache(cache, i: int):
-    """Layer ``i``'s ``{"k", "v"}``: entries of the list form, views into
-    the stacked form (writes into them reach the cache)."""
+    """Layer ``i``'s cache dict: entries of the list form, views into the
+    stacked form (writes into them reach the cache)."""
     layers = cache["layers"]
     if isinstance(layers, (list, tuple)):
         return layers[i]
@@ -434,12 +447,36 @@ def dense_block_decode(cfg, p, x, cache, pos, *, window=None, local=False):
     return x + L.mlp(cfg, p["mlp"], h)
 
 
+def ssm_block_decode(cfg, p, x, cache):
+    """x: (B,1,d).  Advances the layer's SSD state and conv window, written
+    into ``cache`` in place; returns ``x`` plus the block's output."""
+    h = L.apply_norm(cfg, x, p["ln1"])
+    y, (state, conv) = SSM.ssm_block(cfg, p["ssm"], h, state=cache["state"],
+                                     conv_state=cache["conv"], decode=True)
+    # both are new tensors (the window a slice of a fresh concatenation), so
+    # the copies do not read what they overwrite
+    cache["state"].copy_(state)
+    cache["conv"].copy_(conv)
+    return x + y
+
+
+def rg_block_decode(cfg, p, x, cache):
+    """x: (B,1,d).  Advances the layer's RG-LRU state and conv window in
+    ``cache`` in place; returns the block's output."""
+    h = L.apply_norm(cfg, x, p["ln1"])
+    y, (state, conv) = RG.recurrent_block(cfg, p["rec"], h, state=cache["state"],
+                                          conv_state=cache["conv"], decode=True)
+    cache["state"].copy_(state)
+    cache["conv"].copy_(conv)
+    x = x + y
+    h = L.apply_norm(cfg, x, p["ln2"])
+    return x + L.mlp(cfg, p["mlp"], h)
+
+
 def _check_decode_family(cfg: ModelConfig):
-    if cfg.family in ("ssm", "hybrid"):
-        raise _no_decode(f"family {cfg.family!r}", "(b)")
     if cfg.family == "moe" or cfg.mla:
-        raise _no_decode("the MoE family and MLA", "(c)")
-    if cfg.family not in ("dense", "vlm"):
+        raise _no_decode("the MoE family and MLA")
+    if cfg.family not in ("dense", "vlm", "ssm", "hybrid"):
         raise ValueError(f"{cfg.family} has no decode cache")
 
 
@@ -448,7 +485,9 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *, window=None):
     """One serving step: ``tokens`` (B,1) int, ``pos`` (B,) int (or one int
     for every row).  Returns ``(logits (B,1,V), cache)``: the cache is the
     same object, its rows written in place (the JAX package returns a new
-    one).  ``params`` is a :class:`Model`."""
+    one).  ``params`` is a :class:`Model`.  The SSM and RG-LRU layers carry
+    no position; the hybrid's attention layers attend within
+    ``cfg.local_window`` on their rings."""
     _check_decode_family(cfg)
     if window is None:
         window = cfg.sliding_window
@@ -457,8 +496,15 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *, window=None):
     if pos.dim() == 0:
         pos = pos.expand(h.shape[0])
     for i in range(cfg.n_layers):
-        h = dense_block_decode(cfg, params.layer_params(i), h, _layer_cache(cache, i), pos,
-                               window=window)
+        p, c = params.layer_params(i), _layer_cache(cache, i)
+        if cfg.family == "ssm":
+            h = ssm_block_decode(cfg, p, h, c)
+        elif cfg.family != "hybrid":
+            h = dense_block_decode(cfg, p, h, c, pos, window=window)
+        elif cfg.is_attention_layer(i):
+            h = dense_block_decode(cfg, p, h, c, pos, local=True)
+        else:
+            h = rg_block_decode(cfg, p, h, c)
     h = L.apply_norm(cfg, h, params["final_norm"])
     return L.unembed(cfg, params["embed"], h), cache
 
@@ -496,40 +542,72 @@ def decode_fn(model: Model):
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Model, batch, max_len: int, *, window=None):
     """Run the full prompt; returns ``(logits (B,S,V), cache)`` with each
-    layer's K/V of the prompt in the ring layout of width
-    ``cache_width(cfg, max_len)``.
+    attention layer's K/V of the prompt in the ring layout of width
+    ``cache_width(cfg, max_len)`` (``cfg.local_window`` at most for the
+    hybrid's), and each SSM or RG-LRU layer's final state and conv window.
 
-    One pass: each layer's K/V are projected from its input, then the block
-    runs; with ``cfg.autochunk_budget`` the block is the per-block compiled
-    function the forward uses (its attention and SwiGLU MLP on their
-    kernels).  The JAX package runs the forward, then the stack again to
-    capture K/V; the logits and caches are the same."""
+    One pass: each attention layer's K/V are projected from its input, then
+    the block runs; with ``cfg.autochunk_budget`` the block is the per-block
+    compiled function the forward uses (its attention and SwiGLU MLP on
+    their kernels).  An SSM or RG-LRU block hands back its scan's final
+    state too, so it is compiled under its own tag (``ssm_prefill``,
+    ``hyb_rg_prefill``); its conv window, the last W-1 rows of the conv
+    input, is projected from the last rows of the normed input outside the
+    block.  The JAX package runs the forward, then the stack again to
+    capture the caches; the logits and caches are the same."""
     _check_decode_family(cfg)
     if window is None:
         window = cfg.sliding_window
     h, positions = embed_inputs(cfg, params, batch)
     S = h.shape[1]
     width = cache_width(cfg, max_len)
+    fam = cfg.family
 
-    def block(p, x):
-        return dense_block_full(cfg, p, x, window=window, causal=cfg.causal)
-
+    if fam == "ssm":
+        blocks = {"ssm_prefill": lambda p, x: ssm_block_state(cfg, p, x)}
+    elif fam == "hybrid":
+        blocks = {"hyb_attn": lambda p, x: dense_block_full(cfg, p, x, window=cfg.local_window),
+                  "hyb_rg_prefill": lambda p, x: rg_block_state(cfg, p, x)}
+    else:
+        blocks = {f"dense{window}": lambda p, x: dense_block_full(cfg, p, x, window=window,
+                                                                   causal=cfg.causal)}
     if cfg.autochunk_budget:
-        block = _maybe_autochunk(cfg, f"dense{window}", block)
-    blocks = params["blocks"]
-    stacked = not isinstance(blocks, nn.ModuleList)
+        blocks = {tag: _maybe_autochunk(cfg, tag, fn) for tag, fn in blocks.items()}
+    tree = params["blocks"]
+    stacked = not isinstance(tree, nn.ModuleList)
     caches = []
     for i in range(cfg.n_layers):
-        p = _index_tree(blocks, i) if stacked else _index_tree(blocks[i])
-        hn = L.apply_norm(cfg, h, p["ln1"])
-        _, k, v = L.attn_project_qkv(cfg, p["attn"], hn, positions)
-        caches.append(_pad_kv({"k": k, "v": v}, width, S))
-        h = block(p, h)
+        p = _index_tree(tree, i) if stacked else _index_tree(tree[i])
+        if fam == "ssm" or (fam == "hybrid" and not cfg.is_attention_layer(i)):
+            conv = _conv_window(cfg, p, h)
+            h, state = blocks["ssm_prefill" if fam == "ssm" else "hyb_rg_prefill"](p, h)
+            caches.append({"state": state, "conv": conv})
+        else:
+            hn = L.apply_norm(cfg, h, p["ln1"])
+            _, k, v = L.attn_project_qkv(cfg, p["attn"], hn, positions)
+            w = min(width, cfg.local_window) if fam == "hybrid" else width
+            caches.append(_pad_kv({"k": k, "v": v}, w, S))
+            h = blocks["hyb_attn" if fam == "hybrid" else f"dense{window}"](p, h)
     h = L.apply_norm(cfg, h, params["final_norm"])
     logits = L.unembed(cfg, params["embed"], h)
-    if cfg.scan_layers:
-        return logits, {"layers": {k: torch.stack([c[k] for c in caches]) for k in ("k", "v")}}
+    if cfg.scan_layers and fam in ("dense", "vlm", "ssm"):
+        return logits, {"layers": {k: torch.stack([c[k] for c in caches]) for k in caches[0]}}
     return logits, {"layers": caches}
+
+
+def _conv_window(cfg, p, x):
+    """A recurrent block's conv window, the last W-1 rows of its conv input:
+    those rows of ``x`` normed (a row-wise norm, so the rows of the normed
+    whole) times the conv input's weight columns (the SSM block's input
+    projection's x, B and C columns, the RG-LRU block's ``w_x``); zeros
+    before the prompt's first token, as the causal conv pads."""
+    if cfg.family == "ssm":
+        di, N, W = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv_width
+        w_cols = p["ssm"]["w_in"][:, di:2 * di + 2 * N]   # ssm_block splits z, x, B, C, dt
+    else:
+        w_cols, W = p["rec"]["w_x"], cfg.rglru_conv_width
+    tail = L.apply_norm(cfg, x[:, -(W - 1):], p["ln1"]) @ w_cols
+    return F.pad(tail, (0, 0, W - 1 - tail.shape[1], 0))
 
 
 def _pad_kv(c, width: int, S: int):

@@ -1,4 +1,4 @@
-"""Mamba-2 SSD block (state-space duality, arXiv:2405.21060), full sequence.
+"""Mamba-2 SSD block (state-space duality, arXiv:2405.21060).
 
 A port of the JAX package's ``models/ssm.py``.  The SSD algorithm is
 natively chunked: quadratic (attention-like) compute inside a chunk and a
@@ -8,8 +8,9 @@ op (``kernels/ssd_scan.py``), whose plain version is a port of that
 ``ssd_chunked`` and whose CUDA kernel computes the same contraction on the
 card.
 
-The decode arm (``conv1d_step``, ``ssd_decode_step``, ``ssm_state_specs``)
-is not ported yet: ``decode=True`` raises (ROADMAP queue A item 10).
+Decode (``decode=True``) carries the f32 SSD state and the conv window one
+token at a time (``conv1d_step``, ``ssd_decode_step``): plain PyTorch, as
+the JAX package's one-token recurrence is plain ``jnp``.
 """
 from __future__ import annotations
 
@@ -20,8 +21,6 @@ import torch.nn.functional as F
 
 from ..kernels import ssd_scan as SS
 from .layers import _normal, rmsnorm
-
-DECODE_TODO = "the SSM and RG-LRU decode arms (ROADMAP queue A item 10)"
 
 
 def ssm_params(cfg, gen, *, device):
@@ -54,25 +53,65 @@ def causal_conv1d(x, w, b):
     return out + b
 
 
+def conv1d_step(conv_state, x_t, w, b):
+    """conv_state: (B, W-1, C); x_t: (B, C) -> (new_state, y_t).
+
+    The taps are summed one at a time in x's dtype, as ``causal_conv1d``
+    sums them, so a decoded row rounds as the same row of the prefill."""
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)      # (B,W,C)
+    y = torch.zeros_like(x_t)
+    for i in range(w.shape[0]):
+        y = y + window[:, i] * w[i]
+    return window[:, 1:], y + b
+
+
+def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t):
+    """One recurrent step in f32.  state: (b,h,p,n); x_t: (b,h,p);
+    dt_t: (b,h); B_t, C_t: (b,n)."""
+    da = torch.exp(A[None, :] * dt_t)                             # (b,h)
+    upd = (dt_t[:, :, None, None] * x_t.float()[:, :, :, None]
+           * B_t.float()[:, None, None, :])                       # (b,h,p,n)
+    state = da[:, :, None, None] * state + upd
+    y = torch.einsum("bn,bhpn->bhp", C_t.float(), state)
+    return state, y
+
+
 def ssm_block(cfg, p, x, *, state=None, conv_state=None, decode: bool = False):
-    """Mamba-2 block, full sequence: x (B,S,d) -> (y, (ssd_state, conv_state))."""
-    if decode:
-        raise NotImplementedError(DECODE_TODO)
+    """Mamba-2 block.  Full sequence: x (B,S,d) -> (y, (ssd_state, conv_state)).
+    Decode: x (B,1,d) with the carried (state, conv_state)."""
     B_, S, d = x.shape
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     proj = x @ p["w_in"]
     z, xs, Bm, Cm, dt = torch.split(proj, [di, di, N, N, H], dim=-1)
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
-    conv_out = causal_conv1d(conv_in, p["conv_w"], p["conv_b"])
-    conv_state = conv_in[:, -(cfg.ssm_conv_width - 1):, :]
+    if decode:
+        conv_state, conv_out = conv1d_step(conv_state, conv_in[:, 0], p["conv_w"], p["conv_b"])
+        conv_out = conv_out[:, None, :]
+    else:
+        conv_out = causal_conv1d(conv_in, p["conv_w"], p["conv_b"])
+        conv_state = conv_in[:, -(cfg.ssm_conv_width - 1):, :]
     conv_out = F.silu(conv_out)
     # column views of the conv output: the kernel reads them in place
     xs, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
     xh = xs.reshape(B_, S, H, P)
     dtp = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    yh, state = SS.ssd_scan(xh, dtp, A, Bm, Cm, chunk=min(cfg.ssm_chunk, S))
+    if decode:
+        state, yh = ssd_decode_step(state, xh[:, 0], dtp[:, 0], A, Bm[:, 0], Cm[:, 0])
+        yh = yh[:, None]
+    else:
+        yh, state = SS.ssd_scan(xh, dtp, A, Bm, Cm, chunk=min(cfg.ssm_chunk, S))
     yh = yh + p["D"][None, None, :, None] * xh.float()
     y = yh.reshape(B_, S, di).to(x.dtype)
     y = rmsnorm(y * F.silu(z), p["out_norm"])
     return y @ p["w_out"], (state, conv_state)
+
+
+def ssm_state_specs(cfg, batch):
+    """(state, conv) specs of one layer: ``meta`` tensors, the f32 SSD state
+    (batch, H, P, N) and the conv window (batch, W-1, d_inner + 2N)."""
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    conv_ch = cfg.d_inner + 2 * N
+    return (torch.empty((batch, H, P, N), dtype=torch.float32, device="meta"),
+            torch.empty((batch, cfg.ssm_conv_width - 1, conv_ch), dtype=cfg.torch_dtype,
+                        device="meta"))

@@ -3,10 +3,11 @@ batching over a paged KV pool.
 
 A port of the JAX package's ``ServeEngine`` and ``PagedServeEngine``.
 
-``ServeEngine`` holds ``max_batch`` slots, each one request's KV cache
-(a ring of ``cache_width`` positions: a sliding-window model keeps only its
-window, so it serves past it).  A request is prefilled alone into a free
-slot; one decode wave then advances every slot by one token, each at its
+``ServeEngine`` holds ``max_batch`` slots, each one request's cache: K/V
+rings of ``cache_width`` positions (a sliding-window model keeps only its
+window, so it serves past it), and for the SSM and hybrid families each
+recurrent layer's f32 state and conv window.  A request is prefilled
+alone into a free slot; one decode wave then advances every slot by one token, each at its
 own position (one batched step with a ``pos`` of shape (B,), where the JAX
 package vmaps a one-row step).  With ``cfg.autochunk_budget`` the prefill
 runs the per-block compiled forward (attention and SwiGLU on their
@@ -106,7 +107,8 @@ def _refuse_unported(autotune: bool, mesh, obs: bool) -> None:
 
 
 class ServeEngine:
-    """Fixed-slot batched serving over ring KV caches.
+    """Fixed-slot batched serving over ring KV caches and recurrent states
+(the dense, vlm, SSM and hybrid families).
 
     ``plan_accuracy`` (the predicted-against-measured peak of the serving
     plan) is left out of :meth:`metrics`: it comes with the observability
@@ -416,6 +418,7 @@ class PagedServeEngine:
         if spill_pages and not prefix_cache:
             raise ValueError("spill_pages requires prefix_cache=True")
         if cfg.family not in ("dense", "vlm") or cfg.mla or not cfg.causal:
+            # SSM and hybrid states keep the slot engine, as in the JAX package
             raise ValueError(
                 "PagedServeEngine serves causal dense/GQA decoders;"
                 f" got family={cfg.family!r} mla={cfg.mla} causal={cfg.causal}"

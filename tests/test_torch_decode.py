@@ -179,15 +179,16 @@ def test_rows_at_different_positions_decode_as_alone():
             np.testing.assert_allclose(lg[b].numpy(), lb[0].numpy(), atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("name,part", [("mamba2-1.3b", "(b)"), ("recurrentgemma-9b", "(b)"),
-                                       ("qwen2-moe-a2.7b", "(c)")])
+@pytest.mark.parametrize("name,part", [("deepseek-v3-671b", "(c)"), ("qwen2-moe-a2.7b", "(c)")])
 def test_unported_families_raise_naming_their_item(name, part):
+    """MoE (qwen2-moe) and MoE with MLA (deepseek-v3) are ROADMAP item 10
+    (c); the SSM and hybrid families decode (tests/test_torch_ssm_decode.py)."""
     cfg = get_config(name).reduced()
     with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP queue A item 10 {part}")):
         M.decode_step(cfg, None, None, torch.zeros((1, 1), dtype=torch.int64),
                       torch.tensor([0]))
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 10"):
         M.prefill(cfg, None, {"tokens": torch.zeros((1, 2), dtype=torch.int64)}, 8)
-    if cfg.family != "moe":
-        with pytest.raises(NotImplementedError, match=r"item 10 \(b\)"):
+    if cfg.mla:
+        with pytest.raises(NotImplementedError, match=r"item 10 \(c\)"):
             M.cache_specs(cfg, 1, 8)

@@ -324,3 +324,22 @@ def test_target_follows_the_inputs_and_keys_the_plan():
     traced = autochunk(_attn(32), ChunkConfig(kernel_dispatch="on"),
                        bucketer=None).trace(_qkv(32, 32))
     assert (traced.device, traced.target) == ("cpu", "cpu")
+
+
+def test_dispatch_keeps_an_in_place_write_nothing_reads():
+    """A dispatched attention site prunes the nodes the kernel made dead;
+    an in-place write into an input (as a decode wave's ``copy_`` into its
+    state cache) stays, though no output reads it."""
+    S = 256
+
+    def fn(qkv, out):
+        out.copy_(qkv[0][:, -1])
+        return _attn(S)(qkv)
+
+    qkv = _qkv(32, S)
+    compiled, counts = _compile(fn, (qkv, torch.zeros((1, 4, 32))))
+    assert counts["kernel_dispatch_hits"] == 1
+    out = torch.zeros((1, 4, 32))
+    got = compiled(qkv, out)
+    assert torch.equal(out, qkv[0][:, -1])
+    np.testing.assert_allclose(got.numpy(), _attn(S)(qkv).numpy(), atol=ATOL)

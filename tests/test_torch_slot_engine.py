@@ -266,7 +266,7 @@ def test_engine_metrics(gpt):
 
 @pytest.mark.parametrize("kw,item", [
     ({"autotune": True}, "item 7"), ({"mesh": "data=1"}, "item 11"), ({"obs": True}, "item 9"),
-    ({"arch": "mamba2-1.3b"}, "item 10 (b)"), ({"arch": "recurrentgemma-9b"}, "item 10 (b)"),
+    ({"arch": "deepseek-v3-671b"}, "item 10 (c)"), ({"arch": "qwen2-moe-a2.7b"}, "item 10 (c)"),
 ])
 def test_engine_refusals_name_their_item(kw, item):
     kw = dict(kw)
@@ -312,6 +312,19 @@ def test_cli_without_paged_prints_the_jax_counters():
     assert lines(ours)[1] == "bucket_exec_hits=1 new_traces=0 new_searches=0 new_wave_compiles=0"
     assert "[serve] engine built" in ours and "plan cache: cold" in ours
     assert "[serve] codegen stats:" in ours
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_paged_engine_refuses_recurrent_states(arch):
+    """The SSM and hybrid families keep the fixed-slot engine, as in the JAX
+    package: the paged engine refuses them at construction."""
+    from repro_torch.serving import PagedServeEngine
+
+    cfg = get_config(arch).reduced().with_(dtype="float32", n_layers=3)
+    params = M.init_params(cfg, 0, device="cpu")
+    with pytest.raises(ValueError, match=f"family={cfg.family!r}"):
+        PagedServeEngine(cfg, params, max_seqs=2, max_len=64, device="cpu")
+    assert ServeEngine(cfg, params, max_batch=2, max_len=64, device="cpu").cache
 
 
 def test_paged_engine_sends_a_window_past_max_len_to_the_slot_engine():

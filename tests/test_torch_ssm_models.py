@@ -112,8 +112,11 @@ def test_ssm_block(mamba):
     _close(y, jy)
     _close(state, jstate)
     _close(conv_state, jconv)
-    with pytest.raises(NotImplementedError, match="decode"):
-        SSM.ssm_block(cfg, p, x[:, :1], decode=True)
+    # one decode step from that state: tests/test_torch_ssm_decode.py holds more
+    got = SSM.ssm_block(cfg, p, x[:, :1], state=state, conv_state=conv_state, decode=True)
+    want = JSSM.ssm_block(jcfg, jp, jx[:, :1], state=jstate, conv_state=jconv, decode=True)
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        _close(g, w)
 
 
 def test_gates_and_recurrent_block(hybrid):
@@ -129,8 +132,11 @@ def test_gates_and_recurrent_block(hybrid):
     _close(y, jy)
     _close(state, jstate)
     _close(conv_state, jconv)
-    with pytest.raises(NotImplementedError, match="decode"):
-        RG.recurrent_block(cfg, p, x[:, :1], decode=True)
+    # one decode step from that state: tests/test_torch_ssm_decode.py holds more
+    got = RG.recurrent_block(cfg, p, x[:, :1], state=state, conv_state=conv_state, decode=True)
+    want = JRG.recurrent_block(jcfg, jp, jx[:, :1], state=jstate, conv_state=jconv, decode=True)
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        _close(g, w)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
