@@ -121,7 +121,18 @@ two at mamba2-1.3b's and three at recurrentgemma-9b's:
   at budget 0.5 beside the plain one; the requests again with the scans'
   plain versions; float32 served logits at 4 and 3 layers within 1e-3 of
   the forward over the sequence so far (across recurrentgemma's ring
-  wrap at position 4096); the serving CLI on both at reduced size.
+  wrap at position 4096); the serving CLI on both at reduced size;
+* the MoE family: qwen2-moe-a2.7b's 24-layer bf16 forward of 8192 tokens
+  at full width (60 routed experts padded to 64, top-4, 4 shared),
+  unbudgeted and with ``autochunk_budget=0.04``: one MoE block compiled at
+  the first layer and replayed for the other 23, its attention on
+  ``computed_attention``, its shared expert's SwiGLU on ``chunked_ffn``
+  and its routed experts a generic loop; the block's plan, its predicted
+  and measured layer-0 peaks (within 5%), both kernels on layer 0's own
+  calls against their plain versions, the launches, the aux loss of both
+  runs and the assignments layer 0 drops at capacity 640; float32 at 2
+  layers (logits and aux within 1e-3 of unbudgeted) and bf16 at 4 layers
+  (per block no further from float32 than 1.5 times unbudgeted).
 
 Before the SSM and hybrid paths, both scans are held against their plain
 versions (mamba2's shape, a length the chunk does not divide, the reduced
@@ -3200,6 +3211,348 @@ def time_scans(torch, SS, RS, flush, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The MoE family: qwen2-moe-a2.7b's forward per block
+# ---------------------------------------------------------------------------
+
+MOE_RUN = dict(arch="qwen2-moe-a2.7b", seq_len=8192, budget=0.04, seed=13,
+               # depths of the float32 and bf16-against-float32 checks
+               fp32_layers=2, bf16_layers=4)
+
+
+def moe_weight_bytes(model):
+    """Bytes of one MoE layer's weights by part, of the embedding and of
+    the whole model."""
+    def nb(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    p = model.layer_params(0)
+    moe = p["moe"]
+    return dict(experts=nb([moe["w_up"], moe["w_down"]]), shared=nb(moe["shared"].parameters()),
+                attention=nb(p["attn"].parameters()), router=nb([moe["router"]]),
+                embedding=nb(model["embed"].parameters()), total=nb(model.parameters()))
+
+
+def all_loops(planned):
+    """[(dispatch kinds or ("generic",), rows or slots per chunk, trips)] of
+    every chunk loop of a planned block."""
+    from repro_torch.core.lowering import is_chunk_loop
+
+    return [(tuple(d.kind for d in n.params["dispatches"]) or ("generic",), n.params["c"],
+             n.params["n_iters"]) for n in planned.graph.nodes if is_chunk_loop(n)]
+
+
+def live_at_peak(planned, top=4):
+    """The largest values live at a planned graph's predicted peak, as
+    (bytes, op, shape), beside the peak node's own loop body."""
+    from repro_torch.core.estimation import estimate_memory
+    from repro_torch.core.graph import op_name, vshape
+
+    g = planned.graph
+    i = estimate_memory(g).peak_node
+    live = [(g.node_bytes(v), op_name(v), vshape(v)) for v, last in g.last_use.items()
+            if g.producer.get(v) is not None and g.producer[v] <= i <= last and g.node_bytes(v)]
+    return sorted(live, key=lambda t: -t[0])[:top]
+
+
+def capture_ffn_calls(torch, CF, fn):
+    """``fn()`` with every ``chunked_ffn`` call's x copied and its weights
+    kept as the views the path hands over; the kernel runs as usual."""
+    wrapped, calls = CF.chunked_ffn, []
+
+    def spy(x, wg, wu, wd, **kw):
+        calls.append((x.clone(), wg, wu, wd))
+        return wrapped(x, wg, wu, wd, **kw)
+
+    spy.launches = wrapped.launches
+    CF.chunked_ffn = spy
+    try:
+        with torch.no_grad():
+            fn()
+    finally:
+        CF.chunked_ffn = wrapped
+        wrapped.launches = spy.launches
+    return calls
+
+
+def moe_layer0_routes(torch, M, cfg, p0, h0):
+    """Layer 0's expert indices (S, k) in the unchunked block."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+
+    with torch.no_grad():
+        x = M.attn_apply_full(cfg, p0, h0, None, window=None, causal=True)
+        h = L.apply_norm(cfg, x, p0["ln2"])
+        return MOE.route(cfg, h.reshape(-1, cfg.d_model), p0["moe"]["router"])[0]
+
+
+def moe_block_with_routes(M, cfg):
+    """The MoE block that also hands back its router's expert indices."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+
+    def block(p, x):
+        x = M.attn_apply_full(cfg, p, x, None, window=None, causal=True)
+        h = L.apply_norm(cfg, x, p["ln2"])
+        idx = MOE.route(cfg, h.reshape(-1, cfg.d_model), p["moe"]["router"])[0]
+        ff, aux = MOE.moe_ffn(cfg, p["moe"], h)
+        return x + ff, aux, idx
+    return block
+
+
+def run_moe_forward(torch, CA, CF, stats, M, card, attn_errs, ffn_errs):
+    """qwen2-moe-a2.7b at full width and depth, bf16, random weights: one
+    forward of S 8192 unbudgeted, then per block at budget 0.04 (one MoE
+    block compiled at layer 0, replayed for the other 23; its attention on
+    ``computed_attention``, its shared expert's SwiGLU on ``chunked_ffn``,
+    its routed experts a generic loop), counts zeroed just before and read
+    just after; the block's plan and layer-0 peaks (within 5% of the
+    prediction), both kernels on layer 0's own calls against their plain
+    versions, and the assignments layer 0 drops at capacity."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ChunkConfig, autochunk
+    from repro_torch.models import moe as MOE
+
+    # the list form: stacking 24 layers would hold the weights twice at once
+    cfg = get_config(MOE_RUN["arch"]).with_(scan_layers=False)
+    cfg_ac = cfg.with_(autochunk_budget=MOE_RUN["budget"])
+    S, L, E = MOE_RUN["seq_len"], cfg.n_layers, cfg.n_experts_padded
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(MOE_RUN["seed"]),
+                          device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    wb = moe_weight_bytes(model)
+    print(f"[moe] qwen2-moe-a2.7b bf16 L={L} d={cfg.d_model} H={cfg.n_heads} hd={cfg.hd}"
+          f" experts {cfg.n_experts} (padded {E}) top-{cfg.experts_per_token} f={cfg.moe_d_ff},"
+          f" {cfg.n_shared_experts} shared (f {cfg.n_shared_experts * cfg.moe_d_ff}), vocab"
+          f" {cfg.vocab_size}: weights built on the card in {build_s:.2f}s, {wb['total']} B"
+          f" (per layer: routed experts {wb['experts']} B, shared expert {wb['shared']} B,"
+          f" attention {wb['attention']} B, router {wb['router']} B; embedding and head"
+          f" {wb['embedding']} B)")
+    batch = block_batch(torch, cfg, MOE_RUN["seed"])
+
+    # the unbudgeted forward
+    def unchunked():
+        return M.forward(cfg, model, batch)
+
+    def per_block():
+        return M.forward(cfg_ac, model, batch)
+
+    with torch.no_grad():
+        unchunked()
+        (y0, aux0), peak0, ms0 = measure_forward(torch, unchunked, ())
+
+    # layer 0's routing at capacity: the assignments beyond each expert's cap
+    p0m = model.layer_params(0)
+    p0 = M._index_tree(p0m)
+    h0 = M.embed_inputs(cfg, model, batch)[0]
+    cap = MOE.capacity(cfg, S)
+    idx0 = moe_layer0_routes(torch, M, cfg, p0m, h0)
+    counts = torch.bincount(idx0.flatten(), minlength=E)
+    dropped = int((counts - cap).clamp(min=0).sum())
+    over = int((counts > cap).sum())
+    print(f"[moe] layer 0 routing at S={S}: capacity {cap} a expert; assignments per expert"
+          f" min {int(counts[:cfg.n_experts].min())} max {int(counts.max())}; {over} experts"
+          f" over capacity, {dropped} of {S * cfg.experts_per_token} assignments dropped")
+    check(cap == 640, f"capacity {cap}, want 640")
+    check(int(counts[cfg.n_experts:].sum()) == 0, "a padding expert was routed to")
+
+    # the first per-block forward: one search at layer 0, 23 replays
+    M._AC_CACHE.clear()
+    before = stats.snapshot()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y1, aux1 = per_block()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    d = stats.delta(before)
+    del y1
+    (cf,) = M._AC_CACHE.values()
+    r = cf.autochunk_result
+    before = stats.snapshot()
+    planned = cf.trace(p0, h0).search()
+    check(stats.delta(before)["search_passes"] == 0, "the replay searched")
+    loops, live = all_loops(planned), live_at_peak(planned)
+    del planned
+    kinds = {k[0]: (c, n) for k, c, n in loops if k != ("generic",)}
+    n_generic = sum(k == ("generic",) for k, _, _ in loops)
+    check(cf.counters["compiles"] == 1 and cf.counters["shape_hits"] == L - 1,
+          f"first forward: {cf.stats()}, want 1 compile and {L - 1} replays")
+    check(set(kinds) == {"attention", "swiglu"},
+          f"dispatched loops {loops}: want attention and SwiGLU")
+    check(d["kernel_dispatch_hits"] == 2 and d["kernel_dispatch_computed_mask"] == 1
+          and d["kernel_dispatch_misses"] == n_generic,
+          f"dispatch hits {d['kernel_dispatch_hits']} (computed"
+          f" {d['kernel_dispatch_computed_mask']}), misses {d['kernel_dispatch_misses']};"
+          f" want attention and the shared SwiGLU, and a miss for each of {n_generic}"
+          " generic loops")
+    print(f"[block] moe: first per-block forward {first_s:.2f}s, one block compile (host"
+          f" seconds trace {r.trace_s:.2f}, search {r.search_s:.2f}, compile"
+          f" {r.elapsed_s - r.trace_s - r.search_s:.2f}; {d['search_passes']} search passes),"
+          f" {cf.counters['shape_hits']} replays; {len(r.plan)} stages; predicted block peak"
+          f" {r.baseline_peak} B -> {r.final_peak} B (budget {r.budget_bytes} B); dispatch"
+          f" hits {d['kernel_dispatch_hits']}, misses {d['kernel_dispatch_misses']}")
+    for kind, c, n in loops:
+        print(f"[block] moe loop {'+'.join(kind)}: {n} chunks of {c}")
+    print("[block] moe values live at the predicted peak: "
+          + ", ".join(f"{op} {tuple(shape)} {b} B" for b, op, shape in live))
+    for line in r.report().splitlines()[6:]:
+        print(f"[block] {line.strip()}")
+
+    def block(p, x):
+        return M.moe_block_full(cfg, p, x, window=None)
+
+    with torch.no_grad():
+        block(p0, h0)
+        _, bpeak0, bms0 = measure_forward(torch, block, (p0, h0))
+        _, bpeak1, bms1 = measure_forward(torch, cf, (p0, h0))
+    print(f"[block] moe layer 0 activation peak: unchunked {bpeak0} B (predicted"
+          f" {r.baseline_peak} B, {bpeak0 / r.baseline_peak:.4f}x), chunked {bpeak1} B"
+          f" (predicted {r.final_peak} B, {bpeak1 / r.final_peak:.4f}x); time unchunked"
+          f" {bms0:.2f} ms, chunked {bms1:.2f} ms; {card}")
+    check(abs(bpeak1 - r.final_peak) <= 0.05 * r.final_peak,
+          f"moe chunked block peak {bpeak1} B is not within 5% of the predicted {r.final_peak} B")
+
+    # both kernels on layer 0's own calls
+    calls = capture_calls(torch, CA, "computed_attention", lambda: cf(p0, h0))
+    check(len(calls) == kinds["attention"][1],
+          f"{len(calls)} attention calls in one block, want {kinds['attention'][1]}")
+    attn_check = check_block_attention(torch, CA, calls, attn_errs)
+    del calls
+    fcalls = capture_ffn_calls(torch, CF, lambda: cf(p0, h0))
+    check(len(fcalls) == kinds["swiglu"][1],
+          f"{len(fcalls)} chunked_ffn calls in one block, want {kinds['swiglu'][1]}")
+    for i, (x, wg, wu, wd) in enumerate(fcalls):
+        dt_name = str(x.dtype).removeprefix("torch.")
+        err = hold(torch, "chunked_ffn", f"moe shared expert chunk {i} of layer 0 {dt_name}"
+                   f" rows={x.shape[0]} d={x.shape[1]} f={wg.shape[1]}",
+                   lambda: CF.chunked_ffn(x, wg, wu, wd),
+                   lambda: CF.chunked_ffn_plain(x, wg, wu, wd), TOL[dt_name])
+        ffn_errs[dt_name] = max(ffn_errs.get(dt_name, 0.0), err)
+    del fcalls
+
+    # the whole forward per block, counts zeroed just before, read just after
+    hits = cf.counters["shape_hits"]
+    before = stats.snapshot()
+    CA.computed_attention.launches = CA.masked_attention.launches = 0
+    CF.chunked_ffn.launches = 0
+    with torch.no_grad():
+        (y1, aux1), peak1, ms1 = measure_forward(torch, per_block, ())
+    n_ffn, n_attn = CF.chunked_ffn.launches, CA.computed_attention.launches
+    n_masked = CA.masked_attention.launches
+    d = stats.delta(before)
+    check(d["search_passes"] == 0 and cf.counters["shape_hits"] - hits == L,
+          f"second forward: {d['search_passes']} search passes,"
+          f" {cf.counters['shape_hits'] - hits} replays")
+    check(n_ffn == L * kinds["swiglu"][1] > 0,
+          f"chunked_ffn launched {n_ffn} times, want {L} x {kinds['swiglu'][1]}")
+    check(n_attn == L * kinds["attention"][1] > 0 and n_masked == 0,
+          f"computed_attention launched {n_attn} times (masked {n_masked}), want {L} x"
+          f" {kinds['attention'][1]}")
+    check(bool(torch.isfinite(y1[..., :cfg.vocab_size]).all()), "non-finite moe logits")
+    check(bool(torch.isfinite(aux1)) and float(aux1) > 0, f"moe aux loss {float(aux1)}")
+    bf16_err = max_logit_err(y1, y0, cfg.vocab_size)
+    print(f"[forward] qwen2-moe-a2.7b: whole-forward peak unbudgeted {peak0} B, per block"
+          f" {peak1} B; time unbudgeted {ms0:.2f} ms, per block {ms1:.2f} ms; computed_attention"
+          f" launches {n_attn} = {L} layers x {kinds['attention'][1]} chunks of"
+          f" {kinds['attention'][0]}, chunked_ffn launches {n_ffn} = {L} layers x"
+          f" {kinds['swiglu'][1]} chunks of {kinds['swiglu'][0]} rows; aux loss unbudgeted"
+          f" {float(aux0):.6f}, per block {float(aux1):.6f}; bf16 logits max |delta| vs"
+          f" unbudgeted {bf16_err:.3e}; {card}")
+    out = dict(weight_bytes=wb, build_s=build_s, seconds_first=first_s, trace_s=r.trace_s,
+               search_s=r.search_s, stages=len(r.plan),
+               loops=[dict(kinds=list(k), chunk=c, chunks=n) for k, c, n in loops],
+               pred_block0=r.baseline_peak, pred_block1=r.final_peak,
+               budget_bytes=r.budget_bytes, live_at_peak=[list(t) for t in live],
+               block_peak0=bpeak0, block_peak1=bpeak1,
+               block_ms0=bms0, block_ms1=bms1, peak0=peak0, peak1=peak1, ms0=ms0, ms1=ms1,
+               attention_launches=n_attn, chunked_ffn_launches=n_ffn,
+               aux0=float(aux0), aux1=float(aux1), bf16_logits_err=bf16_err,
+               capacity=cap, dropped_layer0=dropped, experts_over_capacity=over,
+               attention_check=attn_check)
+    del y0, y1, model, p0, p0m, h0, cf
+    M._AC_CACHE.clear()
+    torch.cuda.empty_cache()
+    out.update(check_moe_logits(torch, M, card))
+    return out
+
+
+def check_moe_logits(torch, M, card):
+    """float32 at 2 layers, full width, S 8192: per-block logits and aux
+    within 1e-3 of the unbudgeted ones.  Then 4 layers in float32 and the
+    same weights rounded to bf16: the per-block bf16 logits no further from
+    float32 than 1.5 times the unbudgeted bf16 ones.  On a miss, how many of
+    layer 0's tokens route to another top-k set in the per-block bf16 block
+    than in the unbudgeted one is printed before the run fails."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ChunkConfig, autochunk
+
+    base = get_config(MOE_RUN["arch"]).with_(scan_layers=False)
+    budget = MOE_RUN["budget"]
+    cfg = base.with_(dtype="float32", n_layers=MOE_RUN["fp32_layers"])
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(14), device="cuda")
+    batch = block_batch(torch, cfg, 14)
+    M._AC_CACHE.clear()
+    with torch.no_grad():
+        y0, a0 = M.forward(cfg, model, batch)
+        y1, a1 = M.forward(cfg.with_(autochunk_budget=budget), model, batch)
+    err, aerr = max_logit_err(y1, y0, cfg.vocab_size), abs(float(a1) - float(a0))
+    (cf,) = M._AC_CACHE.values()
+    print(f"[forward] qwen2-moe-a2.7b per-block fp32 L={cfg.n_layers} S={MOE_RUN['seq_len']}:"
+          f" {len(cf.autochunk_result.plan)} stages; per-block vs unbudgeted logits max_abs_err"
+          f" {err:.3e}, aux {float(a0):.6f} vs {float(a1):.6f} (|delta| {aerr:.3e}; limits 1e-3)")
+    check(err <= 1e-3 and aerr <= 1e-3, f"fp32 moe per-block logits {err}, aux {aerr}")
+    del y0, y1, model, cf
+    M._AC_CACHE.clear()
+    torch.cuda.empty_cache()
+
+    cfg = base.with_(dtype="float32", n_layers=MOE_RUN["bf16_layers"])
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(15), device="cuda")
+    batch = block_batch(torch, cfg, 15)
+    with torch.no_grad():
+        y32 = M.forward(cfg, model, batch)[0]
+    cfg16 = cfg.with_(dtype="bfloat16")
+    # the routers stay float32, as the model's init makes them
+    routers = {n: p.detach().clone() for n, p in model.named_parameters()
+               if n.endswith("moe.router")}
+    model.to(torch.bfloat16)
+    for n, p in model.named_parameters():
+        if n in routers:
+            p.data = routers[n]
+    M._AC_CACHE.clear()
+    with torch.no_grad():
+        y16 = M.forward(cfg16, model, batch)[0]
+        err_u = max_logit_err(y16, y32, cfg.vocab_size)
+        del y16
+        y16 = M.forward(cfg16.with_(autochunk_budget=budget), model, batch)[0]
+    err_c = max_logit_err(y16, y32, cfg.vocab_size)
+    del y16, y32
+    print(f"[forward] qwen2-moe-a2.7b bf16 L={cfg.n_layers} S={MOE_RUN['seq_len']} against the"
+          f" float32 logits of the same weights: unbudgeted max_abs_err {err_u:.3e}, per block"
+          f" {err_c:.3e} ({err_c / err_u:.3f}x; limit 1.5x); {card}")
+    flips = None
+    if err_c > 1.5 * err_u:
+        p0m = model.layer_params(0)
+        p0 = M._index_tree(p0m)
+        h0 = M.embed_inputs(cfg16, model, batch)[0]
+        want = moe_layer0_routes(torch, M, cfg16, p0m, h0)
+        routes = autochunk(moe_block_with_routes(M, cfg16), ChunkConfig.from_scalar(
+            budget, weight_argnums=(0,), dim_blocklist=(0,)))
+        got = routes(p0, h0)[2]
+        flips = int((want.sort(dim=-1).values != got.sort(dim=-1).values).any(dim=-1).sum())
+        print(f"[forward] qwen2-moe-a2.7b bf16: {flips} of {h0.shape[1]} layer-0 tokens route"
+              " to another top-k set per block than unbudgeted")
+    del model
+    M._AC_CACHE.clear()
+    torch.cuda.empty_cache()
+    check(err_c <= 1.5 * err_u, f"bf16 moe per-block logits stray {err_c} from float32, the"
+          f" unbudgeted bf16 ones {err_u}")
+    return dict(fp32_logits_err=err, fp32_aux_err=aerr, bf16_vs_fp32_unchunked=err_u,
+                bf16_vs_fp32_per_block=err_c, layer0_route_flips=flips)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3550,6 +3903,12 @@ def main() -> int:
                                               N=16, hd=80, causal=False),
     }
 
+    # ---- 17c. qwen2-moe-a2.7b per block at full width and depth ----------
+    # (counts zeroed just before the per-block forward, read just after);
+    # both kernels on layer 0's own calls; fp32 at 2 layers, bf16 at 4
+    moe = run_moe_forward(torch, CA, CF, stats, M, card, attn_err, ffn_err)
+    torch.cuda.empty_cache()
+
     # ---- 18. kernels lines and the result --------------------------------
     launch_counts = {"paged_attention": launches,
                      "computed_attention": fwd["auto"]["launches"],
@@ -3566,8 +3925,11 @@ def main() -> int:
         "ssd_scan": slot_ssm["mamba2-1.3b"]["launches"]["ssd_scan"],
         "rglru_scan": slot_ssm["recurrentgemma-9b"]["launches"]["rglru_scan"],
         "computed_attention": slot_ssm["recurrentgemma-9b"]["launches"]["computed_attention"]}
+    moe_launches = {"computed_attention": moe["attention_launches"],
+                    "chunked_ffn": moe["chunked_ffn_launches"]}
     print("kernels: " + json.dumps([{"name": k, "launches": n,
                                      "slot_ssm_launches": slot_ssm_launches.get(k, 0),
+                                     "moe_launches": moe_launches.get(k, 0),
                                      "max_err_bf16": errs[k]["bfloat16"],
                                      "max_err_fp32": errs[k]["float32"]}
                                     for k, n in launch_counts.items()]))
@@ -3616,6 +3978,8 @@ def main() -> int:
         "plans": slot_ssm["recurrentgemma-9b"]["plans"]}
     for i, kname in ((1, "computed_attention"), (2, "masked_attention")):
         entries[i]["head_dim_shapes"] = {k: t[kname] for k, t in hd_timed.items()}
+    entries[1]["moe_forward"] = moe
+    entries[1]["moe_launches"] = moe_launches["computed_attention"]
     entries[1]["tensor_core_instructions"] = routes["chunked_attention"]
     entries[2]["tensor_core_instructions"] = routes["chunked_attention"]
     # computed_attention also carries the per-block path: its launches there
@@ -3635,6 +3999,8 @@ def main() -> int:
         "forward": block,
         "phi3_forward": phi3,
         "slot_serve": {k: slot[k] for k in ("chunked_ffn_launches", "plans")},
+        "moe_launches": moe_launches["chunked_ffn"],
+        "moe_forward": {k: moe[k] for k in ("chunked_ffn_launches", "loops", "stages")},
         "tensor_core_instructions": routes["chunked_ffn"],
     })
     for kname, line, run, arch in (("ssd_scan", 78, ssm, "mamba2-1.3b"),

@@ -334,6 +334,25 @@ def _embedding(node, out_dim):
     return res
 
 
+@register("index")
+def _index(node, out_dim):
+    # ``x[idx]``, one index tensor on dim 0 (a gather of rows): the output's
+    # leading dims are the index's, the rest are x's trailing dims
+    x, indices = node.args[:2]
+    if len(indices) != 1 or not isinstance(indices[0], Node):
+        return None
+    idx = indices[0]
+    rank = len(vshape(idx))
+    res: Req = {}
+    if out_dim < rank:
+        _put(res, idx, out_dim)
+        _put(res, x, FULL)
+    else:
+        _put(res, x, out_dim - rank + 1)
+        _put(res, idx, FULL)
+    return res
+
+
 # Ops without tensor inputs (``arange``, ``ones``, ``full``, ``scalar_tensor``,
 # ``empty``...) have no rule: chunks would need offset positions.  They BREAK
 # and the search hoists them (compute once, slice per chunk), which is

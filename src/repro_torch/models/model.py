@@ -1,4 +1,4 @@
-"""Model assembly: init and full-sequence forward of the dense, SSM and
+"""Model assembly: init and full-sequence forward of the dense, MoE, SSM and
 hybrid families; the serving caches, decode step and prefill of the dense,
 vlm, SSM and hybrid families.
 
@@ -21,11 +21,12 @@ from torch.utils import _pytree as pytree
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import layers as L
+from . import moe as MOE
 from . import rglru as RG
 from . import ssm as SSM
 
 DENSE_FAMILIES = ("dense", "vlm", "encoder", "audio")
-FAMILIES = DENSE_FAMILIES + ("ssm", "hybrid")
+FAMILIES = DENSE_FAMILIES + ("moe", "ssm", "hybrid")
 
 
 class ParamTree(nn.Module):
@@ -58,7 +59,14 @@ class Model(ParamTree):
         self.cfg = cfg
 
     def layer_params(self, i: int):
-        """Block ``i``'s params: a slice of the stacked form, or list entry."""
+        """Block ``i``'s params: a slice of the stacked form, or list entry.
+        A MoE model's layers are its ``dense_blocks`` (a list), then its
+        ``blocks``."""
+        if "dense_blocks" in self._modules:
+            dense = self["dense_blocks"]
+            if i < len(dense):
+                return dense[i]
+            i -= len(dense)
         blocks = self["blocks"]
         if isinstance(blocks, nn.ModuleList):
             return blocks[i]
@@ -84,6 +92,11 @@ def logits_fn(model: Model):
     return fn
 
 
+def _no_mla():
+    return NotImplementedError("MLA attention: the port has the dense, MoE, ssm and hybrid"
+                               " families (ROADMAP queue A item 10 (c))")
+
+
 def _index_tree(tree: ParamTree, i: Optional[int] = None) -> Dict[str, Any]:
     """A module tree as a nested dict of its tensors (entry ``i`` of each,
     for the stacked form)."""
@@ -105,6 +118,15 @@ def dense_block_params(cfg, gen, *, device, d_ff=None):
         "ln2": L.norm_params(cfg, cfg.d_model, device=device),
         "attn": L.attn_params(cfg, gen, device=device),
         "mlp": L.mlp_params(cfg, gen, device=device, f=d_ff or cfg.d_ff),
+    }
+
+
+def moe_block_params(cfg, gen, *, device):
+    return {
+        "ln1": L.norm_params(cfg, cfg.d_model, device=device),
+        "ln2": L.norm_params(cfg, cfg.d_model, device=device),
+        "attn": L.attn_params(cfg, gen, device=device),
+        "moe": MOE.moe_params(cfg, gen, device=device),
     }
 
 
@@ -137,12 +159,9 @@ def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0,
     ``meta`` only shapes and dtypes are made and ``generator`` is unused.
     """
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port has the dense, ssm and hybrid families"
-            " (ROADMAP queue A item 10 ports the others)"
-        )
+        raise ValueError(cfg.family)
     if cfg.mla:
-        raise NotImplementedError("MLA attention (ROADMAP queue A item 10)")
+        raise _no_mla()
     dev = resolve_device(device)
     if dev.type == "meta":
         generator = None
@@ -156,6 +175,14 @@ def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0,
                        if cfg.is_attention_layer(i)
                        else rg_block_params(cfg, generator, device=dev)
                        for i in range(cfg.n_layers)]
+    elif cfg.family == "moe":
+        # a list of dense prefix blocks, then the MoE blocks (stacked or not)
+        k = cfg.first_k_dense
+        p["dense_blocks"] = [dense_block_params(cfg, generator, device=dev)
+                             for _ in range(k)]
+        blocks = [moe_block_params(cfg, generator, device=dev)
+                  for _ in range(cfg.n_layers - k)]
+        p["blocks"] = _stack(blocks) if cfg.scan_layers else blocks
     else:
         block_params = ssm_block_params if cfg.family == "ssm" else dense_block_params
         blocks = [block_params(cfg, generator, device=dev) for _ in range(cfg.n_layers)]
@@ -183,6 +210,14 @@ def dense_block_full(cfg, p, x, positions=None, *, window=None, causal=None):
     x = attn_apply_full(cfg, p, x, positions, window=window, causal=causal)
     h = L.apply_norm(cfg, x, p["ln2"])
     return x + L.mlp(cfg, p["mlp"], h)
+
+
+def moe_block_full(cfg, p, x, positions=None, *, window=None):
+    """Returns (x, the router's aux loss)."""
+    x = attn_apply_full(cfg, p, x, positions, window=window, causal=True)
+    h = L.apply_norm(cfg, x, p["ln2"])
+    ff, aux = MOE.moe_ffn(cfg, p["moe"], h)
+    return x + ff, aux
 
 
 def ssm_block_full(cfg, p, x):
@@ -278,19 +313,23 @@ def _run_blocks(cfg: ModelConfig, params: Model, h, tag: str, block):
 
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: Model, batch, *, window: Optional[int] = None):
-    """Full-sequence forward of the dense, SSM and hybrid families.
-    Returns (logits, aux_loss).
+    """Full-sequence forward of the dense, MoE, SSM and hybrid families.
+    Returns (logits, aux_loss): the MoE routers' load-balance loss summed
+    over the MoE layers, 0 for the other families.
 
     With ``cfg.autochunk_budget`` each block runs the AutoChunk plan of one
     block, compiled at the first layer of its kind and replayed for the
     rest: one plan for a dense or SSM model, two for the hybrid (its local
-    attention block, tag ``hyb_attn``, and its RG-LRU block, ``hyb_rg``).
+    attention block, tag ``hyb_attn``, and its RG-LRU block, ``hyb_rg``),
+    and for MoE one for its dense prefix (``densepre{window}``) and one for
+    its MoE blocks (``moe{window}``, returning the block's aux loss too).
     The SSM and RG-LRU scans stay one kernel op inside the compiled block.
     """
     fam = cfg.family
     if fam not in FAMILIES:
-        raise NotImplementedError(
-            f"family {fam!r} (ROADMAP queue A item 10)")
+        raise ValueError(fam)
+    if cfg.mla:
+        raise _no_mla()
     h, _ = embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if fam in DENSE_FAMILIES:
@@ -299,6 +338,22 @@ def forward(cfg: ModelConfig, params: Model, batch, *, window: Optional[int] = N
                                                       causal=cfg.causal))
     elif fam == "ssm":
         h = _run_blocks(cfg, params, h, "ssm", lambda p, x: ssm_block_full(cfg, p, x))
+    elif fam == "moe":
+        dense = lambda p, x: dense_block_full(cfg, p, x, window=window)
+        moe = lambda p, x: moe_block_full(cfg, p, x, window=window)
+        if cfg.autochunk_budget:
+            if cfg.first_k_dense:
+                dense = _maybe_autochunk(cfg, f"densepre{window}", dense)
+            moe = _maybe_autochunk(cfg, f"moe{window}", moe)
+        for i in range(cfg.n_layers):
+            p = params.layer_params(i)
+            if cfg.autochunk_budget and isinstance(p, nn.Module):
+                p = _index_tree(p)   # the compiler takes a dict of tensors
+            if i < cfg.first_k_dense:
+                h = dense(p, h)
+            else:
+                h, aux_i = moe(p, h)
+                aux = aux + aux_i
     else:
         blocks = {"hyb_attn": lambda p, x: dense_block_full(cfg, p, x, window=cfg.local_window),
                   "hyb_rg": lambda p, x: rg_block_full(cfg, p, x)}

@@ -150,6 +150,25 @@ def test_compiled_wave_stage_counts(gpt):
     assert all(r.chunk_extent in (32, 64) for r in res.plan)
 
 
+def test_jax_wave_budget_lies_below_its_own_io_bytes(gpt):
+    """Why the two packages' wave plans differ (ROADMAP C-6, a cost): at
+    budget 0.5 the JAX wave's budget, 199,168 B, lies below its own input
+    and output bytes, 266,256 B, so no chunking can reach it and its search
+    takes no stage; the port's aten wave peaks at 134,272 B (it copies K and
+    V) and its 4 stages bring that to 38,016 B, within its 67,136 B budget.
+    The estimators also count the in-place cache differently."""
+    cfg, params = gpt
+    jcfg = jax_config("gpt-paper").reduced().with_(dtype="float32")
+    jres = JServeEngine(jcfg, JM.init_params(jcfg, jax.random.PRNGKey(0)), max_batch=2,
+                        max_len=64, autochunk_budget=0.5).autochunk_result
+    assert (jres.baseline_peak, jres.io_bytes, jres.budget_bytes, jres.final_peak) == (
+        398_336, 266_256, 199_168, 398_336)
+    res = ServeEngine(cfg, params, max_batch=2, max_len=64, autochunk_budget=0.5,
+                      device="cpu").autochunk_result
+    assert (res.baseline_peak, res.budget_bytes, res.final_peak, len(res.plan)) == (
+        134_272, 67_136, 38_016, 4)
+
+
 def test_engine_plan_cache_and_reconfigure(gpt, tmp_path):
     """As the JAX package's test of the same name: the cache is warm after
     construction; a second engine on the same directory replays the plan
