@@ -12,7 +12,8 @@ the bf16 FFN kernel must have HGMMA, the bf16 SSD kernel HMMA or HGMMA,
 their f32 kernels, the mask's tile pre-pass and the RG-LRU kernels none),
 and drives the port's paths, four at
 gpt-paper's full width, one at minitron-4b's, four at phi3-mini-3.8b's,
-two at mamba2-1.3b's and three at recurrentgemma-9b's:
+two at mamba2-1.3b's, three at recurrentgemma-9b's and two at
+qwen2-moe-a2.7b's:
 
 * serving: the paged engine, its kernel held against its plain version at
   the serving shapes (gpt-paper's and phi3-mini's heads) and at edge cases
@@ -132,7 +133,25 @@ two at mamba2-1.3b's and three at recurrentgemma-9b's:
   calls against their plain versions, the launches, the aux loss of both
   runs and the assignments layer 0 drops at capacity 640; float32 at 2
   layers (logits and aux within 1e-3 of unbudgeted) and bf16 at 4 layers
-  (per block no further from float32 than 1.5 times unbudgeted).
+  (per block no further from float32 than 1.5 times unbudgeted);
+* MoE serving (``[moe-serve]``): qwen2-moe-a2.7b at full width and depth,
+  bf16, stacked, through the fixed-slot engine, the ``[moe]`` weights
+  freed first: 2 slots, max_len 8320 (rings of the 8192-token window),
+  prompts of 8128, 1000 and 2000 tokens with 128, 64 and 32 new (the
+  first decodes across position 8192, the third takes the slot the second
+  frees); each prefill per block at budget 0.04 under the forward's
+  ``moe8192`` tag, ``computed_attention`` and ``chunked_ffn`` launched
+  24 x each prefill's plan chunks; each plan's layer-0 peak within 5% of
+  its prediction, the assignments dropped at each prefill's capacity, both
+  kernels on layer 0's own calls against their plain versions (bf16 and
+  f32); cache bytes, TTFT, tok/s, decode waves; the same requests with the
+  plain versions swapped in; the wave compiled at budget 0.5 and the plain
+  wave against a float32 wave from the same cache (the compiled no further
+  than 1.5 times the plain), both wave times beside the wave's bound by
+  bytes, and the compiled wave reconfigured inside its bucket; float32 at 2 layers with
+  capacity factor 16 (no expert overflows) against ``forward(window=8192)``
+  at the first wave, the wrap and the last (1e-3); the serving CLI on the
+  reduced model.
 
 Before the SSM and hybrid paths, both scans are held against their plain
 versions (mamba2's shape, a length the chunk does not divide, the reduced
@@ -1932,19 +1951,22 @@ def slot_block_plans(torch, CA, M, cfg, model, prompts, errs):
     return out
 
 
-def slot_fp32_logits(torch, M, ServeEngine, Request, card):
-    """phi3-mini at ``fp32_layers`` layers in float32, the same requests:
-    rid 0's logits at the first decode wave, the wave that writes position
-    8192 (the ring's first wrap) and the last, against the unchunked
-    ``forward(..., window=8192)`` over its sequence so far (limit 1e-3)."""
-    from repro_torch.configs import get_config
-
-    cfg = get_config(SLOT["arch"]).with_(dtype="float32", n_layers=SLOT["fp32_layers"])
-    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(14), device="cuda")
+def served_fp32_logits(torch, M, ServeEngine, Request, cfg, run, seed, label, rows, card,
+                       why=""):
+    """``cfg`` (float32, cut in depth) served as ``run`` serves its model,
+    the prefill per block under ``run["budget"]``: rid 0's logits at the
+    first decode wave, the wave that writes position ``cfg.sliding_window``
+    (the ring's first wrap) and the last, against the unchunked
+    ``forward(..., window=cfg.sliding_window)`` over its sequence so far
+    (limit 1e-3; ``why`` follows the result on its line).  Then the wave
+    compiled at ``run["wave_budget"]`` against the plain one on the same
+    cache, next tokens and positions (float32 ``TOL``): ``rows`` are the
+    requests the two slots hold when the run ends."""
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
     M._AC_CACHE.clear()
-    engine = ServeEngine(cfg.with_(autochunk_budget=SLOT["budget"]), model,
-                         max_batch=SLOT["max_batch"], max_len=SLOT["max_len"], device="cuda")
-    S0, n0 = SLOT["prompts"][0], SLOT["max_new"][0]
+    engine = ServeEngine(cfg.with_(autochunk_budget=run["budget"]), model,
+                         max_batch=run["max_batch"], max_len=run["max_len"], device="cuda")
+    S0, n0 = run["prompts"][0], run["max_new"][0]
     waves = {"first": 0, "wrap": cfg.sliding_window - S0, "last": n0 - 2}
     kept = {}
     wave = engine._decode_wave
@@ -1958,32 +1980,32 @@ def slot_fp32_logits(torch, M, ServeEngine, Request, card):
         return logits
 
     engine._decode_wave = spy
-    reqs = slot_requests(Request, cfg.vocab_size, 14)
+    reqs = make_requests(Request, cfg.vocab_size, seed, run["prompts"], run["max_new"])
     for r in reqs:
         engine.submit(r)
     engine.run()
-    check(all(r.done and len(r.generated) == m for r, m in zip(reqs, SLOT["max_new"])),
-          "fp32 slot serving: a request did not finish")
-    # the wave compiled at SLOT's wave budget against the plain one, on the
-    # same cache, tokens and positions (float32 limit of TOL)
-    e2 = ServeEngine(cfg, model, max_batch=SLOT["max_batch"], max_len=SLOT["max_len"],
-                     autochunk_budget=SLOT["wave_budget"], device="cuda")
+    check(all(r.done and len(r.generated) == m for r, m in zip(reqs, run["max_new"])),
+          f"fp32 {label} serving: a request did not finish")
+    # the wave compiled at the run's wave budget against the plain one, on
+    # the same cache, tokens and positions (float32 limit of TOL)
+    e2 = ServeEngine(cfg, model, max_batch=run["max_batch"], max_len=run["max_len"],
+                     autochunk_budget=run["wave_budget"], device="cuda")
     for full, mine in zip(torch.utils._pytree.tree_leaves(e2.cache),
                           torch.utils._pytree.tree_leaves(engine.cache)):
         full.copy_(mine)
-    toks_w = torch.tensor([reqs[2].generated[-1], reqs[1].generated[-1]], device="cuda")
-    pos_w = torch.tensor([len(reqs[2].prompt) + len(reqs[2].generated),
-                          len(reqs[1].prompt) + len(reqs[1].generated)], device="cuda")
+    last = [reqs[i] for i in rows]
+    toks_w = torch.tensor([r.generated[-1] for r in last], device="cuda")
+    pos_w = torch.tensor([len(r.prompt) + len(r.generated) for r in last], device="cuda")
     with torch.no_grad():
         want = wave(engine.cache, toks_w, pos_w)[:, :cfg.vocab_size]
         got = e2._decode_wave(e2.cache, toks_w, pos_w)[:, :cfg.vocab_size]
     wave_err = compare(torch, "decode wave", f"fp32 L={cfg.n_layers} compiled (budget"
-                       f" {SLOT['wave_budget']}, {len(e2.autochunk_result.plan)} stages)"
+                       f" {run['wave_budget']}, {len(e2.autochunk_result.plan)} stages)"
                        " against plain", got, want, TOL["float32"])
     leaves = zip(torch.utils._pytree.tree_leaves(e2.cache),
                  torch.utils._pytree.tree_leaves(engine.cache))
     cache_err = max(float((a - b).abs().max()) for a, b in leaves)
-    print(f"[slot] fp32 caches after the two waves: max_abs_err {cache_err:.3e} (limit 1e-4)")
+    print(f"[{label}] fp32 caches after the two waves: max_abs_err {cache_err:.3e} (limit 1e-4)")
     check(cache_err <= 1e-4, f"the compiled wave wrote another cache: {cache_err}")
     del e2
     check(kept["wrap"][0] == cfg.sliding_window, f"the wrap wave was at {kept['wrap'][0]}")
@@ -1997,11 +2019,11 @@ def slot_fp32_logits(torch, M, ServeEngine, Request, card):
                                .abs().max())
             del want
             torch.cuda.empty_cache()
-    print(f"[slot] fp32 L={cfg.n_layers}: rid 0 decode logits against forward(window="
+    print(f"[{label}] fp32 L={cfg.n_layers}: rid 0 decode logits against forward(window="
           f"{cfg.sliding_window}) over the sequence so far: "
           + ", ".join(f"{k} wave (position {kept[k][0]}) {v:.3e}" for k, v in errs.items())
-          + f" (limit 1e-3); {card}")
-    check(max(errs.values()) <= 1e-3, f"fp32 slot logits differ from the forward: {errs}")
+          + f" (limit 1e-3){why}; {card}")
+    check(max(errs.values()) <= 1e-3, f"fp32 {label} logits differ from the forward: {errs}")
     M._AC_CACHE.clear()
     del engine, model
     torch.cuda.empty_cache()
@@ -2194,7 +2216,11 @@ def run_slot_phase(torch, CA, CF, stats, M, flush, card):
     M._AC_CACHE.clear()
     torch.cuda.empty_cache()
 
-    fp32 = slot_fp32_logits(torch, M, ServeEngine, Request, card)
+    # float32 at 4 layers; slot 0 ends holding rid 2 (admitted first into
+    # the freed slots), slot 1 rid 1
+    fp32 = served_fp32_logits(torch, M, ServeEngine, Request,
+                              cfg.with_(dtype="float32", n_layers=SLOT["fp32_layers"]), SLOT, 14,
+                              "slot", (2, 1), card)
     cli = slot_cli(torch)
     return dict(build_s=build_s, exec_len=16384, ring_width=width, cache_bytes=cache_bytes,
                 wall_s=wall, tokens=toks, tok_s=toks / wall, decode_waves=waves,
@@ -3222,15 +3248,18 @@ MOE_RUN = dict(arch="qwen2-moe-a2.7b", seq_len=8192, budget=0.04, seed=13,
 
 def moe_weight_bytes(model):
     """Bytes of one MoE layer's weights by part, of the embedding and of
-    the whole model."""
-    def nb(ts):
+    the whole model (the list or the stacked form)."""
+    def nb(tree):
+        if isinstance(tree, dict):        # a stacked layer: a dict of views
+            return sum(nb(v) for v in tree.values())
+        ts = tree.parameters() if hasattr(tree, "parameters") else [tree]
         return sum(t.numel() * t.element_size() for t in ts)
 
     p = model.layer_params(0)
     moe = p["moe"]
-    return dict(experts=nb([moe["w_up"], moe["w_down"]]), shared=nb(moe["shared"].parameters()),
-                attention=nb(p["attn"].parameters()), router=nb([moe["router"]]),
-                embedding=nb(model["embed"].parameters()), total=nb(model.parameters()))
+    return dict(experts=nb(moe["w_up"]) + nb(moe["w_down"]), shared=nb(moe["shared"]),
+                attention=nb(p["attn"]), router=nb(moe["router"]),
+                embedding=nb(model["embed"]), total=nb(model))
 
 
 def all_loops(planned):
@@ -3275,13 +3304,13 @@ def capture_ffn_calls(torch, CF, fn):
     return calls
 
 
-def moe_layer0_routes(torch, M, cfg, p0, h0):
+def moe_layer0_routes(torch, M, cfg, p0, h0, window=None):
     """Layer 0's expert indices (S, k) in the unchunked block."""
     from repro_torch.models import layers as L
     from repro_torch.models import moe as MOE
 
     with torch.no_grad():
-        x = M.attn_apply_full(cfg, p0, h0, None, window=None, causal=True)
+        x = M.attn_apply_full(cfg, p0, h0, None, window=window, causal=True)
         h = L.apply_norm(cfg, x, p0["ln2"])
         return MOE.route(cfg, h.reshape(-1, cfg.d_model), p0["moe"]["router"])[0]
 
@@ -3551,6 +3580,367 @@ def check_moe_logits(torch, M, card):
           f" unbudgeted bf16 ones {err_u}")
     return dict(fp32_logits_err=err, fp32_aux_err=aerr, bf16_vs_fp32_unchunked=err_u,
                 bf16_vs_fp32_per_block=err_c, layer0_route_flips=flips)
+
+
+# ---------------------------------------------------------------------------
+# MoE serving: qwen2-moe-a2.7b through the fixed-slot engine
+# ---------------------------------------------------------------------------
+
+MOE_SERVE = dict(arch="qwen2-moe-a2.7b", seed=14, max_batch=2, max_len=8320, budget=0.04,
+                 # the first decodes across position 8192 (the ring's first wrap at
+                 # wave 64); the third is admitted into the slot the second frees
+                 prompts=(8128, 1000, 2000), max_new=(128, 64, 32),
+                 wave_budget=0.5, second_max_len=9000, wave_reps=10,
+                 # float32 depth, and a capacity factor at which every expert's
+                 # capacity is the prompt's length
+                 fp32_layers=2, fp32_capacity_factor=16.0,
+                 cli=["--arch", "qwen2-moe-a2.7b"] + SLOT_SSM["cli"])
+
+
+def hold_calls_both_dtypes(torch, kname, label, calls, kernel, plain, errs):
+    """Each captured call (a tuple of arguments, keywords) of a kernel
+    against its plain version as the path gave it (bf16) and cast to
+    float32, under ``TOL``; the largest error per dtype into ``errs``."""
+    for i, (args, kw) in enumerate(calls):
+        for dt_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt_name)
+            a = [x.to(dtype) if isinstance(x, torch.Tensor) and x.is_floating_point() else x
+                 for x in args]
+            err = hold(torch, kname, f"{label} call {i} {dt_name} "
+                       + " ".join(f"{tuple(x.shape)}" for x in a if isinstance(x, torch.Tensor)),
+                       lambda: kernel(*a, **kw), lambda: plain(*a, **kw), TOL[dt_name])
+            errs[kname, dt_name] = max(errs.get((kname, dt_name), 0.0), err)
+
+
+def moe_serve_block_plans(torch, CA, CF, stats, M, cfg, model, prompts, errs, card):
+    """For each prompt length the engine served (``prompts``: length -> a
+    prompt), the MoE block's plan the prefill compiled for it (traced
+    again on layer 0's own input: a replay, no search), its stages and
+    every loop with its chunks, layer 0's measured peak against the
+    prediction (within 5%), the assignments layer 0 drops at that length's
+    capacity, and both kernels on layer 0's own calls against their plain
+    versions, bf16 and float32."""
+    from repro_torch.models import moe as MOE
+
+    tag = f"moe{cfg.sliding_window}"
+    cfs = {key[2]: cf for key, cf in M._AC_CACHE.items()}
+    check(set(cfs) == {tag}, f"prefill plans {sorted(cfs)}, want {tag}")
+    cf = cfs[tag]
+    p0 = M._index_tree(model["blocks"], 0)
+    E, k = cfg.n_experts_padded, cfg.experts_per_token
+    out = {}
+    for S, prompt in prompts.items():
+        h0 = M.embed_inputs(cfg, model, {"tokens": torch.tensor([prompt], device="cuda")})[0]
+        served = cf._compiled[cf._shape_key((p0, h0))].result
+        before = stats.snapshot()
+        planned = cf.trace(p0, h0).search()
+        searched = stats.delta(before)["search_passes"]
+        loops = all_loops(planned)
+        pred, stages, budget_bytes = served.final_peak, len(served.plan), planned.budget_bytes
+        check(len(planned.plan.stages) == stages and planned.final_peak == pred,
+              f"moe block S={S}: traced again, {len(planned.plan.stages)} stages and"
+              f" {planned.final_peak} B; served {stages} and {pred} B")
+        del planned
+        with torch.no_grad():
+            cf(p0, h0)
+            _, peak, ms = measure_forward(torch, cf, (p0, h0))
+        comp, ffn = [], []
+        masked = capture_calls(torch, CA, "masked_attention", lambda: comp.extend(
+            capture_calls(torch, CA, "computed_attention", lambda: ffn.extend(
+                capture_ffn_calls(torch, CF, lambda: cf(p0, h0))))))
+        chunks = {kind: sum(n for kinds, _, n in loops if kind in kinds)
+                  for kind in ("attention", "swiglu")}
+        cap = MOE.capacity(cfg, S)
+        idx = moe_layer0_routes(torch, M, cfg, p0, h0, window=cfg.sliding_window)
+        counts = torch.bincount(idx.flatten(), minlength=E)
+        dropped, over = int((counts - cap).clamp(min=0).sum()), int((counts > cap).sum())
+        print(f"[moe-serve] block plan S={S} budget {cfg.autochunk_budget} (layer 0's own"
+              f" input; traced again: {searched} search passes): {stages} stages, loops "
+              + ", ".join(f"{'+'.join(kinds)} {n} chunks of {c}" for kinds, c, n in loops)
+              + f"; layer 0 activation peak {peak} B against predicted {pred} B"
+              f" ({peak / pred:.4f}x), budget {budget_bytes} B; {ms:.2f} ms; layer-0 calls"
+              f" computed_attention {len(comp)}, masked_attention {len(masked)}, chunked_ffn"
+              f" {len(ffn)}; capacity {cap}: {dropped} of {S * k} assignments dropped"
+              f" ({over} experts over capacity); {card}")
+        check(abs(peak - pred) <= 0.05 * pred,
+              f"moe block S={S}: peak {peak} B not within 5% of the predicted {pred} B")
+        check(len(comp) + len(masked) == chunks["attention"] and len(ffn) == chunks["swiglu"],
+              f"moe block S={S}: calls {len(comp)} + {len(masked)} / {len(ffn)}, plan {loops}")
+        check(int(counts[cfg.n_experts:].sum()) == 0, "a padding expert was routed to")
+        for kname, kcalls in (("computed_attention", comp), ("masked_attention", masked)):
+            hold_calls_both_dtypes(torch, kname, f"moe-serve prefill S={S} layer 0", kcalls,
+                                   getattr(CA, kname), getattr(CA, f"{kname}_plain"), errs)
+        hold_calls_both_dtypes(torch, "chunked_ffn", f"moe-serve prefill S={S} layer 0",
+                               [(c, {}) for c in ffn], CF.chunked_ffn, CF.chunked_ffn_plain,
+                               errs)
+        out[S] = dict(stages=stages, loops=[dict(kinds=list(kk), chunk=c, chunks=n)
+                                            for kk, c, n in loops],
+                      chunks=chunks, pred_peak=pred, peak=peak, ms=ms, budget_bytes=budget_bytes,
+                      capacity=cap, dropped=dropped, experts_over_capacity=over,
+                      kernel_calls={"computed_attention": len(comp),
+                                    "masked_attention": len(masked), "chunked_ffn": len(ffn)})
+        del h0, comp, masked, ffn
+        torch.cuda.empty_cache()
+    return out
+
+
+class _Widened:
+    """A model's parameters read as float32, one entry at a time: what
+    ``decode_step`` reads of a model (``params["embed"]``,
+    ``layer_params(i)``, ``params["final_norm"]``), each widened when read,
+    so a float32 wave runs beside the bf16 weights without a float32 copy
+    of the whole model."""
+
+    def __init__(self, torch, M, model):
+        self.torch, self.M, self.model = torch, M, model
+
+    def _wide(self, tree):
+        if not isinstance(tree, dict):
+            tree = self.M._index_tree(tree)
+        return self.torch.utils._pytree.tree_map(lambda t: t.float(), tree)
+
+    def __getitem__(self, key):
+        return self._wide(self.model[key])
+
+    def layer_params(self, i):
+        return self._wide(self.model.layer_params(i))
+
+
+def moe_wave_fp32(torch, M, cfg, model, cache, toks, pos):
+    """The plain decode wave in float32 from a bf16 model and cache: a
+    float32 copy of the cache, each layer's weights widened as it runs."""
+    cache32 = torch.utils._pytree.tree_map(lambda t: t.to(torch.float32, copy=True), cache)
+    logits, _ = M.decode_step(cfg.with_(dtype="float32"), _Widened(torch, M, model), cache32,
+                              toks[:, None], pos)
+    return logits[:, 0]
+
+
+def run_moe_serve(torch, CA, CF, stats, M, flush, card):
+    """qwen2-moe-a2.7b at full width and depth, bf16, stacked (the form the
+    JAX package serves), through ``ServeEngine``: 2 slots, three requests
+    (the first across the ring's wrap, the third in the slot the second
+    frees), each prefill per block under budget 0.04 (attention on
+    ``computed_attention``, the shared expert on ``chunked_ffn``), the
+    launch counts zeroed just before serving and read just after; the block
+    plans, peaks and kernels on layer 0's own calls; the plain versions
+    swapped in; the compiled and the plain wave against a float32 wave
+    (the compiled no further than 1.5x the plain), both timed, and the
+    compiled one reconfigured inside its bucket; float32 at 2 layers
+    against the forward; the CLI at reduced size."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Request, ServeEngine
+
+    run = MOE_SERVE
+    cfg = get_config(run["arch"])                  # bf16, 24 layers, stacked, window 8192
+    cfg_ac = cfg.with_(autochunk_budget=run["budget"])
+    L, B = cfg.n_layers, run["max_batch"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(run["seed"]),
+                          device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    wb = moe_weight_bytes(model)
+    M._AC_CACHE.clear()
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg_ac, model, max_batch=B, max_len=run["max_len"], device="cuda")
+    build_s = time.perf_counter() - t0
+    exec_len = engine.exec_len
+    width = M.cache_width(cfg, exec_len)
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for t in torch.utils._pytree.tree_leaves(engine.cache))
+    want_kv = B * width * L * 2 * cfg.n_kv_heads * cfg.hd * 2
+    print(f"[moe-serve] qwen2-moe-a2.7b bf16 stacked: weights {wb['total']} B built on the card"
+          f" in {init_s:.2f}s; engine built in {build_s:.2f}s: {B} slots, max_len"
+          f" {run['max_len']}, exec_len {engine.exec_len}, ring width {width}, cache"
+          f" {kv_bytes} B (the configuration's {B} x {width} x {L} layers x (K, V) x"
+          f" {cfg.n_kv_heads} x {cfg.hd} x 2 B = {want_kv} B; moe_layers"
+          f" {tuple(engine.cache['moe_layers']['k'].shape)})")
+    check(wb["total"] == 30_299_852_800, f"moe weights {wb['total']} B")
+    check(engine.exec_len == 16384 and width == cfg.sliding_window and kv_bytes == want_kv,
+          f"moe slot cache: exec_len {engine.exec_len}, width {width}, {kv_bytes} B")
+
+    reqs = make_requests(Request, cfg.vocab_size, run["seed"], run["prompts"], run["max_new"])
+    torch.cuda.synchronize()
+    CA.computed_attention.launches = CA.masked_attention.launches = 0
+    CF.chunked_ffn.launches = 0
+    before = stats.snapshot()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"computed_attention": CA.computed_attention.launches,
+                "masked_attention": CA.masked_attention.launches,
+                "chunked_ffn": CF.chunked_ffn.launches}
+    d = stats.delta(before)
+    toks = sum(len(r.generated) for r in reqs)
+    max_new = run["max_new"]
+    check(all(r.done and len(r.generated) == m for r, m in zip(reqs, max_new)),
+          "moe serving: a request did not finish with its new tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          "moe serving: a token outside the vocabulary")
+    waves = engine.n_decode_steps
+    check(waves == max(max_new[0] - 1, max_new[1] - 1 + max_new[2] - 1),
+          f"moe serving: {waves} decode waves")
+    ttft = {r.rid: r.ttft_s for r in reqs}
+    print(f"[moe-serve] served {len(reqs)} requests (prompts {run['prompts']}, new {max_new})"
+          f" on {B} slots, prefill per block at budget {run['budget']}: {toks} tokens in"
+          f" {wall:.3f}s = {toks / wall:.1f} tok/s, {waves} decode waves; TTFT"
+          f" {', '.join(f'rid {k} {v:.3f}s' for k, v in ttft.items())}; block compiles"
+          f" {d['search_passes']} search passes; {card}")
+
+    errs = {}
+    first = {}
+    for r in reqs:
+        first.setdefault(len(r.prompt), r.prompt)
+    plans = moe_serve_block_plans(torch, CA, CF, stats, M, cfg_ac, model, first, errs, card)
+    want_attn = sum(L * plans[len(r.prompt)]["chunks"]["attention"] for r in reqs)
+    want_ffn = sum(L * plans[len(r.prompt)]["chunks"]["swiglu"] for r in reqs)
+    print(f"[moe-serve] launches while serving: computed_attention"
+          f" {launches['computed_attention']}, masked_attention {launches['masked_attention']}"
+          f" (together = sum over the 3 prefills of {L} layers x attention chunks ="
+          f" {want_attn}), chunked_ffn {launches['chunked_ffn']} (= {L} x SwiGLU chunks ="
+          f" {want_ffn})")
+    check(launches["computed_attention"] + launches["masked_attention"] == want_attn
+          and launches["computed_attention"] > 0 and launches["chunked_ffn"] == want_ffn > 0,
+          f"moe-serve launches {launches}: attention want {want_attn}, ffn want {want_ffn}")
+
+    # the same requests with the plain versions swapped in (information)
+    plain_reqs = [Request(rid=100 + r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+                  for r in reqs]
+    restore = swap_plain(CA, CF)
+    try:
+        for r in plain_reqs:
+            engine.submit(r)
+        engine.run()
+    finally:
+        restore()
+    same = sum(a == b for r, rp in zip(reqs, plain_reqs) for a, b in zip(r.generated, rp.generated))
+    print(f"[moe-serve] the same requests with the plain versions swapped in: {same} of {toks}"
+          f" tokens equal to the kernels'")
+
+    # the compiled wave (budget 0.5) against the plain one, on the same
+    # cache, next tokens and positions: slot 0 ends holding rid 0, slot 1
+    # rid 2 (admitted into the slot rid 1 freed)
+    before = stats.snapshot()
+    t0 = time.perf_counter()
+    e2 = ServeEngine(cfg_ac, model, max_batch=B, max_len=run["max_len"],
+                     autochunk_budget=run["wave_budget"], device="cuda")
+    wave_build = time.perf_counter() - t0
+    dw = stats.delta(before)
+    res = e2.autochunk_result
+    for full, mine in zip(torch.utils._pytree.tree_leaves(e2.cache),
+                          torch.utils._pytree.tree_leaves(engine.cache)):
+        full.copy_(mine)
+    last = (plain_reqs[0], plain_reqs[2])
+    toks_w = torch.tensor([r.generated[-1] for r in last], device="cuda")
+    pos_w = torch.tensor([len(r.prompt) + len(r.generated) for r in last], device="cuda")
+    print(f"[moe-serve] compiled wave: built in {wave_build:.2f}s ({dw['trace_calls']} trace,"
+          f" {dw['search_passes']} search passes), {len(res.plan)} stages, predicted peak"
+          f" {res.baseline_peak} -> {res.final_peak} B (budget {res.budget_bytes} B);"
+          f" dispatch hits {dw['kernel_dispatch_hits']}, misses {dw['kernel_dispatch_misses']}")
+    # both bf16 waves against the plain wave in float32 from the same cache
+    # (the cache and each layer's weights widened in turn): the compiled
+    # wave's products sum in other orders and each of the 24 layers rounds
+    # its output to bf16, so the two bf16 waves part by more than one
+    # kernel's bf16 limit; the compiled one must be no further from float32
+    # than 1.5x the plain one (the per-block rule)
+    with torch.no_grad():
+        lg_ref = moe_wave_fp32(torch, M, cfg, model, e2.cache, toks_w, pos_w)[:, :cfg.vocab_size]
+        lg_plain = engine._decode_wave(engine.cache, toks_w, pos_w)[:, :cfg.vocab_size]
+        lg_comp = e2._decode_wave(e2.cache, toks_w, pos_w)[:, :cfg.vocab_size]
+    atol, rtol = TOL["bfloat16"]
+    diff = (lg_comp.float() - lg_plain.float()).abs()
+    wave_err = float(diff.max())
+    wave_share = float((diff / (atol + rtol * lg_plain.float().abs())).max())
+    d_comp = float((lg_comp.float() - lg_ref).abs().max())
+    d_plain = float((lg_plain.float() - lg_ref).abs().max())
+    print(f"[moe-serve] first compiled wave against the plain one, bf16 logits: max_abs_err"
+          f" {wave_err:.3e} (max|plain| {float(lg_plain.float().abs().max()):.3f}), {wave_share:.3f}"
+          f" of one kernel's bf16 limit {atol:g} + {rtol:g}|want|; from the float32 wave:"
+          f" compiled {d_comp:.3e}, plain {d_plain:.3e} (limit 1.5x the plain's); argmax"
+          f" equal to the float32 wave's in {int((lg_comp.argmax(-1) == lg_ref.argmax(-1)).sum())}"
+          f" (compiled) and {int((lg_plain.argmax(-1) == lg_ref.argmax(-1)).sum())} (plain) of"
+          f" {B} rows")
+    check(bool(torch.isfinite(lg_comp).all()) and d_comp <= 1.5 * d_plain,
+          f"compiled moe wave {d_comp} from float32, plain {d_plain}")
+    del lg_ref
+    torch.cuda.empty_cache()
+    # a wave reads every weight but the embedding table once, and both rows'
+    # rings: every routed expert runs on its (B, E, 8, d) buffer
+    wave_bytes = (wb["total"] - model["embed"]["embedding"].numel() * 2 + kv_bytes)
+    with torch.no_grad():
+        ms_plain = time_ms(torch, lambda: engine._decode_wave(engine.cache, toks_w, pos_w),
+                           flush, reps=run["wave_reps"])
+        ms_comp = time_ms(torch, lambda: e2._decode_wave(e2.cache, toks_w, pos_w), flush,
+                          reps=run["wave_reps"])
+    wave_bound = wave_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[moe-serve] decode wave {ms_comp:.3f} ms compiled, {ms_plain:.3f} ms plain"
+          f" (CUDA-event medians of {run['wave_reps']}, {B} rows of {width} cache slots, {L}"
+          f" layers); bound {wave_bound:.3f} ms (bytes: {wave_bytes} B of weights and rings);"
+          f" {card}")
+    del engine
+    torch.cuda.empty_cache()
+    before = stats.snapshot()
+    compiles = e2.exec_stats["wave_compiles"]
+    e2.reconfigure(max_len=run["second_max_len"])
+    dr = stats.delta(before)
+    print(f"[moe-serve] reconfigure(max_len={run['second_max_len']}): exec_len {e2.exec_len},"
+          f" bucket_exec_hits {dr['bucket_exec_hits']}, trace_calls {dr['trace_calls']},"
+          f" search_passes {dr['search_passes']}, wave_compiles"
+          f" {e2.exec_stats['wave_compiles']} (was {compiles})")
+    check(e2.exec_len == 16384 and dr["bucket_exec_hits"] == 1 and dr["trace_calls"] == 0
+          and dr["search_passes"] == 0 and e2.exec_stats["wave_compiles"] == compiles,
+          f"moe reconfigure inside the bucket: {dr}")
+    del e2, model
+    M._AC_CACHE.clear()
+    torch.cuda.empty_cache()
+
+    # float32 at 2 layers, capacity factor 16; slot 0 ends holding rid 0,
+    # slot 1 rid 2
+    cfg32 = cfg.with_(dtype="float32", n_layers=run["fp32_layers"],
+                      capacity_factor=run["fp32_capacity_factor"])
+    from repro_torch.models import moe as MOE
+    longest = run["prompts"][0] + run["max_new"][0]
+    check(all(MOE.capacity(cfg32, n) >= n for n in (1,) + run["prompts"] + (longest,)),
+          "fp32 moe: an expert's capacity below the length")
+    fp32 = served_fp32_logits(
+        torch, M, ServeEngine, Request, cfg32, run, 15, "moe-serve", (0, 2), card,
+        why=f" (capacity factor {run['fp32_capacity_factor']:g}: each expert's capacity is at"
+        f" least the length, and top-{cfg.experts_per_token} picks distinct experts, so no"
+        " expert overflows and the served logits must equal the forward's)")
+    cli = moe_serve_cli(torch)
+    return dict(weight_bytes=wb["total"], init_s=init_s, build_s=build_s,
+                exec_len=exec_len, ring_width=width, cache_bytes=kv_bytes,
+                wall_s=wall, tokens=toks, tok_s=toks / wall, decode_waves=waves, ttft_s=ttft,
+                launches=launches, plans={str(k): v for k, v in plans.items()},
+                plain_swapped_equal=same, wave_err=wave_err, wave_share_of_tol=wave_share,
+                wave_err_from_fp32=d_comp, plain_wave_err_from_fp32=d_plain,
+                wave_ms=ms_comp, plain_wave_ms=ms_plain, wave_bound_ms=wave_bound,
+                wave_stages=len(res.plan), wave_build_s=wave_build, fp32=fp32, cli=cli,
+                errs=errs)
+
+
+def moe_serve_cli(torch):
+    """``serve.main --arch qwen2-moe-a2.7b --local`` on the card: the
+    fixed-slot engine serves the reduced model; its ``[serve]`` lines."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        serve.main(MOE_SERVE["cli"])
+    lines = [ln for ln in text.getvalue().splitlines() if ln.startswith("[serve]")]
+    for ln in lines:
+        print(f"[moe-serve] CLI qwen2-moe-a2.7b --local: {ln}")
+    check(any(re.match(r"\[serve\] 3 requests, 24 tokens ", ln) for ln in lines),
+          "the serving CLI did not serve qwen2-moe-a2.7b")
+    torch.cuda.empty_cache()
+    return lines
 
 
 def main() -> int:
@@ -3909,6 +4299,19 @@ def main() -> int:
     moe = run_moe_forward(torch, CA, CF, stats, M, card, attn_err, ffn_err)
     torch.cuda.empty_cache()
 
+    # ---- 17d. qwen2-moe-a2.7b served through the fixed-slot engine ------
+    # (the [moe] weights freed first; counts zeroed just before serving,
+    # read just after); the block plans and both kernels on layer 0's own
+    # calls, the plain versions swapped in, the compiled wave and its warm
+    # reconfigure, fp32 at 2 layers against the forward, the CLI
+    moe_serve = run_moe_serve(torch, CA, CF, stats, M, flush, card)
+    for (kname, dt_name), err in moe_serve.pop("errs").items():
+        if kname == "chunked_ffn":
+            ffn_err[dt_name] = max(ffn_err.get(dt_name, 0.0), err)
+        else:
+            attn_err[(kname, dt_name)] = max(attn_err.get((kname, dt_name), 0.0), err)
+    torch.cuda.empty_cache()
+
     # ---- 18. kernels lines and the result --------------------------------
     launch_counts = {"paged_attention": launches,
                      "computed_attention": fwd["auto"]["launches"],
@@ -3927,9 +4330,11 @@ def main() -> int:
         "computed_attention": slot_ssm["recurrentgemma-9b"]["launches"]["computed_attention"]}
     moe_launches = {"computed_attention": moe["attention_launches"],
                     "chunked_ffn": moe["chunked_ffn_launches"]}
+    moe_serve_launches = moe_serve["launches"]
     print("kernels: " + json.dumps([{"name": k, "launches": n,
                                      "slot_ssm_launches": slot_ssm_launches.get(k, 0),
                                      "moe_launches": moe_launches.get(k, 0),
+                                     "moe_serve_launches": moe_serve_launches.get(k, 0),
                                      "max_err_bf16": errs[k]["bfloat16"],
                                      "max_err_fp32": errs[k]["float32"]}
                                     for k, n in launch_counts.items()]))
@@ -3980,6 +4385,9 @@ def main() -> int:
         entries[i]["head_dim_shapes"] = {k: t[kname] for k, t in hd_timed.items()}
     entries[1]["moe_forward"] = moe
     entries[1]["moe_launches"] = moe_launches["computed_attention"]
+    entries[1]["moe_serve_launches"] = moe_serve_launches["computed_attention"]
+    entries[1]["moe_serve"] = moe_serve
+    entries[2]["moe_serve_launches"] = moe_serve_launches["masked_attention"]
     entries[1]["tensor_core_instructions"] = routes["chunked_attention"]
     entries[2]["tensor_core_instructions"] = routes["chunked_attention"]
     # computed_attention also carries the per-block path: its launches there
@@ -4001,6 +4409,8 @@ def main() -> int:
         "slot_serve": {k: slot[k] for k in ("chunked_ffn_launches", "plans")},
         "moe_launches": moe_launches["chunked_ffn"],
         "moe_forward": {k: moe[k] for k in ("chunked_ffn_launches", "loops", "stages")},
+        "moe_serve_launches": moe_serve_launches["chunked_ffn"],
+        "moe_serve": {k: moe_serve[k] for k in ("launches", "plans")},
         "tensor_core_instructions": routes["chunked_ffn"],
     })
     for kname, line, run, arch in (("ssd_scan", 78, ssm, "mamba2-1.3b"),

@@ -1,6 +1,6 @@
 """Model assembly: init and full-sequence forward of the dense, MoE, SSM and
 hybrid families; the serving caches, decode step and prefill of the dense,
-vlm, SSM and hybrid families.
+vlm, MoE (without MLA), SSM and hybrid families.
 
 Parameters live in a :class:`Model` (an ``nn.Module``) whose ``state_dict``
 keys follow the JAX package's pytree paths: ``blocks.0.attn.wq`` for the
@@ -379,8 +379,8 @@ def forward(cfg: ModelConfig, params: Model, batch, *, window: Optional[int] = N
 # the model's dtype, the SSM and RG-LRU states in f32.
 
 def _no_decode(what: str):
-    return NotImplementedError(f"{what}: the port's decode has the dense, vlm, ssm and"
-                               " hybrid families (ROADMAP queue A item 10 (c))")
+    return NotImplementedError(f"{what}: the port's decode has the dense, vlm, MoE, ssm and"
+                               " hybrid families, MLA not yet (ROADMAP queue A item 10 (c))")
 
 
 def cache_width(cfg: ModelConfig, max_len: int) -> int:
@@ -432,7 +432,9 @@ def _stack_specs(per_layer):
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
     """Specs of the whole cache: ``{"layers": {leaf: (L, batch, ...)}}`` for
     ``scan_layers`` (the stacked form), ``{"layers": [per layer]}`` otherwise,
-    as the JAX package lays them out."""
+    as the JAX package lays them out.  A stacked MoE model's cache is
+    ``{"moe_layers": {leaf: (L - k, batch, ...)}}`` plus ``"dense_layers"``,
+    a list of its ``k = cfg.first_k_dense`` dense prefix layers, when k > 0."""
     width = cache_width(cfg, max_len)
     per_layer = [layer_cache_spec(cfg, k, batch, width) for k in layer_kinds(cfg)]
     if cfg.scan_layers and cfg.family in ("dense", "vlm", "ssm"):
@@ -455,11 +457,44 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
 
 def _layer_cache(cache, i: int):
     """Layer ``i``'s cache dict: entries of the list form, views into the
-    stacked form (writes into them reach the cache)."""
-    layers = cache["layers"]
+    stacked form (writes into them reach the cache).  In the stacked MoE
+    layout layer ``i < first_k_dense`` is entry ``i`` of ``dense_layers``
+    and every later layer is a view into ``moe_layers`` at ``i - k``."""
+    if "moe_layers" in cache:
+        dense = cache.get("dense_layers", [])
+        if i < len(dense):
+            return dense[i]
+        i, layers = i - len(dense), cache["moe_layers"]
+    else:
+        layers = cache["layers"]
     if isinstance(layers, (list, tuple)):
         return layers[i]
     return {k: v[i] for k, v in layers.items()}
+
+
+def _cache_leaves(cache):
+    """[(leaf, its batch dim)] of every leaf of ``cache``, in key order:
+    dim 1 of a stacked leaf (``layers`` or ``moe_layers`` as a dict; dim 0
+    is the layer), dim 0 of a list entry's (``layers`` or ``dense_layers``
+    as a list)."""
+    out = []
+    for key in sorted(cache):
+        part = cache[key]
+        if isinstance(part, (list, tuple)):
+            out += [(layer[k], 0) for layer in part for k in sorted(layer)]
+        else:
+            out += [(part[k], 1) for k in sorted(part)]
+    return out
+
+
+def write_cache_row(cache, row: int, one) -> None:
+    """Copy ``one``, a one-row cache of the same layout (a request's
+    prefill), into row ``row`` of every leaf of the batched ``cache``."""
+    dst, src = _cache_leaves(cache), _cache_leaves(one)
+    if len(dst) != len(src):
+        raise ValueError(f"cache layouts differ: {len(dst)} leaves against {len(src)}")
+    for (full, bdim), (part, _) in zip(dst, src):
+        full.select(bdim, row).copy_(part.select(bdim, 0))
 
 
 # ===========================================================================
@@ -502,6 +537,17 @@ def dense_block_decode(cfg, p, x, cache, pos, *, window=None, local=False):
     return x + L.mlp(cfg, p["mlp"], h)
 
 
+def moe_block_decode(cfg, p, x, cache, pos, *, window=None):
+    """The MoE block at one token a row: attention on the ring (written in
+    place), then the experts.  Each row is a routing group of one token, so
+    its capacity is 8 and nothing drops; the router's aux loss is not
+    served."""
+    x = attn_block_decode(cfg, p, x, cache, pos, window=window)
+    h = L.apply_norm(cfg, x, p["ln2"])
+    ff, _ = MOE.moe_ffn(cfg, p["moe"], h)
+    return x + ff
+
+
 def ssm_block_decode(cfg, p, x, cache):
     """x: (B,1,d).  Advances the layer's SSD state and conv window, written
     into ``cache`` in place; returns ``x`` plus the block's output."""
@@ -529,9 +575,9 @@ def rg_block_decode(cfg, p, x, cache):
 
 
 def _check_decode_family(cfg: ModelConfig):
-    if cfg.family == "moe" or cfg.mla:
-        raise _no_decode("the MoE family and MLA")
-    if cfg.family not in ("dense", "vlm", "ssm", "hybrid"):
+    if cfg.mla:
+        raise _no_decode("MLA")
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise ValueError(f"{cfg.family} has no decode cache")
 
 
@@ -542,7 +588,9 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *, window=None):
     same object, its rows written in place (the JAX package returns a new
     one).  ``params`` is a :class:`Model`.  The SSM and RG-LRU layers carry
     no position; the hybrid's attention layers attend within
-    ``cfg.local_window`` on their rings."""
+    ``cfg.local_window`` on their rings.  A MoE model's dense prefix layers
+    run the dense block, its later layers the MoE block; the loop indexes by
+    layer, so the stacked and the list form both serve."""
     _check_decode_family(cfg)
     if window is None:
         window = cfg.sliding_window
@@ -554,6 +602,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *, window=None):
         p, c = params.layer_params(i), _layer_cache(cache, i)
         if cfg.family == "ssm":
             h = ssm_block_decode(cfg, p, h, c)
+        elif cfg.family == "moe" and i >= cfg.first_k_dense:
+            h = moe_block_decode(cfg, p, h, c, pos, window=window)
         elif cfg.family != "hybrid":
             h = dense_block_decode(cfg, p, h, c, pos, window=window)
         elif cfg.is_attention_layer(i):
@@ -608,7 +658,12 @@ def prefill(cfg: ModelConfig, params: Model, batch, max_len: int, *, window=None
     state too, so it is compiled under its own tag (``ssm_prefill``,
     ``hyb_rg_prefill``); its conv window, the last W-1 rows of the conv
     input, is projected from the last rows of the normed input outside the
-    block.  The JAX package runs the forward, then the stack again to
+    block.  A MoE model's blocks are the forward's per-block functions
+    under its tags (``densepre{window}`` for the dense prefix,
+    ``moe{window}`` for the MoE blocks, whose aux loss is dropped), so a
+    prefill at a length the forward has planned replays the forward's plan;
+    its cache comes back in :func:`cache_specs`'s layout for the config's
+    form.  The JAX package runs the forward, then the stack again to
     capture the caches; the logits and caches are the same."""
     _check_decode_family(cfg)
     if window is None:
@@ -623,30 +678,48 @@ def prefill(cfg: ModelConfig, params: Model, batch, max_len: int, *, window=None
     elif fam == "hybrid":
         blocks = {"hyb_attn": lambda p, x: dense_block_full(cfg, p, x, window=cfg.local_window),
                   "hyb_rg_prefill": lambda p, x: rg_block_state(cfg, p, x)}
+    elif fam == "moe":
+        # the forward's blocks and tags, the dense prefix's only if it has one
+        blocks = {f"moe{window}": lambda p, x: moe_block_full(cfg, p, x, window=window)}
+        if cfg.first_k_dense:
+            blocks[f"densepre{window}"] = lambda p, x: dense_block_full(cfg, p, x, window=window)
     else:
         blocks = {f"dense{window}": lambda p, x: dense_block_full(cfg, p, x, window=window,
                                                                    causal=cfg.causal)}
     if cfg.autochunk_budget:
         blocks = {tag: _maybe_autochunk(cfg, tag, fn) for tag, fn in blocks.items()}
-    tree = params["blocks"]
-    stacked = not isinstance(tree, nn.ModuleList)
     caches = []
     for i in range(cfg.n_layers):
-        p = _index_tree(tree, i) if stacked else _index_tree(tree[i])
+        p = params.layer_params(i)
+        if isinstance(p, nn.Module):
+            p = _index_tree(p)   # the compiler takes a nested dict of tensors
         if fam == "ssm" or (fam == "hybrid" and not cfg.is_attention_layer(i)):
             conv = _conv_window(cfg, p, h)
             h, state = blocks["ssm_prefill" if fam == "ssm" else "hyb_rg_prefill"](p, h)
             caches.append({"state": state, "conv": conv})
+            continue
+        hn = L.apply_norm(cfg, h, p["ln1"])
+        _, k, v = L.attn_project_qkv(cfg, p["attn"], hn, positions)
+        w = min(width, cfg.local_window) if fam == "hybrid" else width
+        caches.append(_pad_kv({"k": k, "v": v}, w, S))
+        if fam == "hybrid":
+            h = blocks["hyb_attn"](p, h)
+        elif fam != "moe":
+            h = blocks[f"dense{window}"](p, h)
+        elif i < cfg.first_k_dense:
+            h = blocks[f"densepre{window}"](p, h)
         else:
-            hn = L.apply_norm(cfg, h, p["ln1"])
-            _, k, v = L.attn_project_qkv(cfg, p["attn"], hn, positions)
-            w = min(width, cfg.local_window) if fam == "hybrid" else width
-            caches.append(_pad_kv({"k": k, "v": v}, w, S))
-            h = blocks["hyb_attn" if fam == "hybrid" else f"dense{window}"](p, h)
+            h = blocks[f"moe{window}"](p, h)[0]
     h = L.apply_norm(cfg, h, params["final_norm"])
     logits = L.unembed(cfg, params["embed"], h)
     if cfg.scan_layers and fam in ("dense", "vlm", "ssm"):
-        return logits, {"layers": {k: torch.stack([c[k] for c in caches]) for k in caches[0]}}
+        return logits, {"layers": _stack(caches)}
+    if cfg.scan_layers and fam == "moe":
+        k = cfg.first_k_dense
+        out = {"moe_layers": _stack(caches[k:])}
+        if k:
+            out["dense_layers"] = caches[:k]
+        return logits, out
     return logits, {"layers": caches}
 
 

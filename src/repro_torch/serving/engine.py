@@ -6,7 +6,8 @@ A port of the JAX package's ``ServeEngine`` and ``PagedServeEngine``.
 ``ServeEngine`` holds ``max_batch`` slots, each one request's cache: K/V
 rings of ``cache_width`` positions (a sliding-window model keeps only its
 window, so it serves past it), and for the SSM and hybrid families each
-recurrent layer's f32 state and conv window.  A request is prefilled
+recurrent layer's f32 state and conv window.  It serves the dense, vlm,
+MoE (without MLA), SSM and hybrid families.  A request is prefilled
 alone into a free slot; one decode wave then advances every slot by one token, each at its
 own position (one batched step with a ``pos`` of shape (B,), where the JAX
 package vmaps a one-row step).  With ``cfg.autochunk_budget`` the prefill
@@ -108,7 +109,9 @@ def _refuse_unported(autotune: bool, mesh, obs: bool) -> None:
 
 class ServeEngine:
     """Fixed-slot batched serving over ring KV caches and recurrent states
-(the dense, vlm, SSM and hybrid families).
+    (the dense, vlm, MoE, SSM and hybrid families; MLA is refused, naming
+    ROADMAP queue A item 10 (c)).  A MoE decode wave routes one token a
+    row, each row a routing group of its own, so no expert overflows.
 
     ``plan_accuracy`` (the predicted-against-measured peak of the serving
     plan) is left out of :meth:`metrics`: it comes with the observability
@@ -299,10 +302,7 @@ class ServeEngine:
             toks = torch.tensor([req.prompt], dtype=torch.int64, device=self.device)
             logits, cache1 = M.prefill(self.cfg, self.params, {"tokens": toks}, self.exec_len)
             # the request's cache into its slot: row `slot` of every leaf
-            # (dim 1 of the stacked form, whose dim 0 is the layer)
-            bdim = 0 if isinstance(self.cache["layers"], list) else 1
-            for full, one in zip(pytree.tree_leaves(self.cache), pytree.tree_leaves(cache1)):
-                full.select(bdim, slot).copy_(one.select(bdim, 0))
+            M.write_cache_row(self.cache, slot, cache1)
             req.generated.append(_sample(logits[0, -1:], self.greedy, self.generator)[0])
             req.first_token_at = time.perf_counter()
             self.slot_req[slot] = req

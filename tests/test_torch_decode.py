@@ -181,9 +181,20 @@ def test_rows_at_different_positions_decode_as_alone():
 
 @pytest.mark.parametrize("name,part", [("deepseek-v3-671b", "(c)"), ("qwen2-moe-a2.7b", "(c)")])
 def test_unported_families_raise_naming_their_item(name, part):
-    """MoE (qwen2-moe) and MoE with MLA (deepseek-v3) are ROADMAP item 10
-    (c); the SSM and hybrid families decode (tests/test_torch_ssm_decode.py)."""
+    """MoE with MLA (deepseek-v3) is ROADMAP item 10 (c) and still raises;
+    the MoE family without it (qwen2-moe) decodes now: its prefill and
+    decode step give logits of the right shape (held against the JAX
+    package's in tests/test_torch_moe_decode.py), as the SSM and hybrid
+    families do (tests/test_torch_ssm_decode.py)."""
     cfg = get_config(name).reduced()
+    if not cfg.mla:
+        cfg = cfg.with_(dtype="float32")
+        params = M.init_params(cfg, 0, device="cpu")
+        lg, cache = M.prefill(cfg, params, {"tokens": torch.tensor([[3, 5]])}, 8)
+        assert lg.shape == (1, 2, cfg.vocab_padded)
+        lg, _ = M.decode_step(cfg, params, cache, torch.tensor([[7]]), torch.tensor([2]))
+        assert lg.shape == (1, 1, cfg.vocab_padded) and bool(torch.isfinite(lg).all())
+        return
     with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP queue A item 10 {part}")):
         M.decode_step(cfg, None, None, torch.zeros((1, 1), dtype=torch.int64),
                       torch.tensor([0]))
