@@ -12,8 +12,8 @@ the bf16 FFN kernel must have HGMMA, the bf16 SSD kernel HMMA or HGMMA,
 their f32 kernels, the mask's tile pre-pass and the RG-LRU kernels none),
 and drives the port's paths, four at
 gpt-paper's full width, one at minitron-4b's, four at phi3-mini-3.8b's,
-two at mamba2-1.3b's, three at recurrentgemma-9b's and two at
-qwen2-moe-a2.7b's:
+two at mamba2-1.3b's, three at recurrentgemma-9b's, two at
+qwen2-moe-a2.7b's and one at deepseek-v3-671b's:
 
 * serving: the paged engine, its kernel held against its plain version at
   the serving shapes (gpt-paper's and phi3-mini's heads) and at edge cases
@@ -151,7 +151,26 @@ qwen2-moe-a2.7b's:
   bytes, and the compiled wave reconfigured inside its bucket; float32 at 2 layers with
   capacity factor 16 (no expert overflows) against ``forward(window=8192)``
   at the first wave, the wrap and the last (1e-3); the serving CLI on the
-  reduced model.
+  reduced model;
+* MLA (``[mla]``): deepseek-v3-671b at full width (128 heads, q_lora
+  1536, kv_lora 512, 256 experts top-8 with sigmoid routing, 1 shared,
+  dense f 18432, vocab 129280), its depth cut to the 3 dense and 2 MoE
+  layers plus the MTP head's params (54,616,616,960 B of bf16 weights, the
+  list form), the earlier phases' weights freed first.  At S 8192 one
+  unchunked block's predicted peak (its summed f32 scores) does not fit
+  beside the weights, so the forward runs per block at budget 0.01 (plans
+  ``densepre8192`` and ``moe8192``, each compiled at its first layer): the
+  plans' loops, the scores a generic loop (no attention kernel computes a
+  sum of two products), each first layer's chunked peak within 5% of its
+  prediction, the first MoE layer's routing at capacity 320,
+  ``chunked_ffn`` launched for every SwiGLU chunk of the plans and no
+  attention kernel, ``chunked_ffn`` on layer 0's own calls (f 18432) and
+  on the shared expert's call (f 2048) against its plain version, bf16
+  and f32, and its time at both shapes; at S 2048 the forward unbudgeted
+  and per block against a float32 forward of the same weights (widened
+  layer by layer as it runs; per block no further than 1.5 times
+  unbudgeted), the MTP head once; float32 at one dense and one MoE layer,
+  per block within 1e-3 of unbudgeted (aux within 1e-6).
 
 Before the SSM and hybrid paths, both scans are held against their plain
 versions (mamba2's shape, a length the chunk does not divide, the reduced
@@ -179,6 +198,7 @@ from __future__ import annotations
 import collections
 import hashlib
 import concurrent.futures
+import gc
 import json
 import math
 import re
@@ -3246,15 +3266,19 @@ MOE_RUN = dict(arch="qwen2-moe-a2.7b", seq_len=8192, budget=0.04, seed=13,
                fp32_layers=2, bf16_layers=4)
 
 
+def param_bytes(tree):
+    """Bytes of a module tree's parameters, of a dict of tensors (a stacked
+    layer: a dict of views) or of one tensor."""
+    if isinstance(tree, dict):
+        return sum(param_bytes(v) for v in tree.values())
+    ts = tree.parameters() if hasattr(tree, "parameters") else [tree]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def moe_weight_bytes(model):
     """Bytes of one MoE layer's weights by part, of the embedding and of
     the whole model (the list or the stacked form)."""
-    def nb(tree):
-        if isinstance(tree, dict):        # a stacked layer: a dict of views
-            return sum(nb(v) for v in tree.values())
-        ts = tree.parameters() if hasattr(tree, "parameters") else [tree]
-        return sum(t.numel() * t.element_size() for t in ts)
-
+    nb = param_bytes
     p = model.layer_params(0)
     moe = p["moe"]
     return dict(experts=nb(moe["w_up"]) + nb(moe["w_down"]), shared=nb(moe["shared"]),
@@ -3943,6 +3967,394 @@ def moe_serve_cli(torch):
     return lines
 
 
+# ---------------------------------------------------------------------------
+# MLA: deepseek-v3-671b's dense prefix and two MoE layers, per block
+# ---------------------------------------------------------------------------
+
+MLA_RUN = dict(arch="deepseek-v3-671b",
+               # the 3 dense layers and 2 MoE layers (plus the MTP head's
+               # params): 61 layers hold 1.3 TB of bf16 weights
+               n_layers=5, weight_bytes=54_616_616_960,
+               seq_len=8192, short_len=2048, seed=16,
+               # the loosest round ratio whose dense-prefix plan chunks the
+               # MLA (planned on meta at S 8192: at 0.04 and 0.02 the scores'
+               # head loop alone meets the budget and the MLP stays whole)
+               budget=0.01,
+               # float32 at one dense and one MoE layer
+               fp32_seed=17)
+
+
+def set_allocator(torch, settings):
+    """The caching allocator's settings (``PYTORCH_CUDA_ALLOC_CONF`` syntax)
+    for the allocations from here on."""
+    fn = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    (fn or torch.cuda.memory._set_allocator_settings)(settings)
+
+
+def labelled_loops(planned):
+    """[(kind, rows or heads per chunk, trips)] of every chunk loop of a
+    planned block: its dispatch kinds, ``scores`` for a generic loop whose
+    body holds the softmax (MLA's summed scores), else ``generic``."""
+    from repro_torch.core.graph import op_name
+    from repro_torch.core.lowering import is_chunk_loop
+
+    out = []
+    for n in planned.graph.nodes:
+        if not is_chunk_loop(n):
+            continue
+        kinds = "+".join(d.kind for d in n.params["dispatches"])
+        if not kinds:
+            body = {op_name(op.node) for op in n.params["body"]}
+            kinds = "scores" if "_softmax" in body else "generic"
+        out.append((kinds, n.params["c"], n.params["n_iters"]))
+    return out
+
+
+def mla_weight_bytes(model):
+    """Bytes of deepseek-v3's weights by part: a dense block (its MLA
+    attention and MLP), a MoE block (routed experts, shared expert,
+    router), the embedding and head, the MTP head and the whole model."""
+    nb = param_bytes
+    dense, moe = model.layer_params(0), model.layer_params(model.cfg.first_k_dense)
+    m = moe["moe"]
+    return dict(dense_block=nb(dense), attention=nb(dense["attn"]), mlp=nb(dense["mlp"]),
+                moe_block=nb(moe), routed_up=nb(m["w_up"]), routed_down=nb(m["w_down"]),
+                shared=nb(m["shared"]), router=nb(m["router"]), embedding=nb(model["embed"]),
+                mtp_proj=nb(model["mtp_proj"]), mtp_block=nb(model["mtp_block"]),
+                total=nb(model))
+
+
+def mla_forward_fp32(torch, M, cfg, model, batch, window):
+    """The unbudgeted forward in float32 from the bf16 model, which it
+    consumes: each layer's weights are widened on the card in place as the
+    layer runs and freed after it, so the float32 model (109 GB at 5
+    layers) never sits whole on the card.  The later MoE layers' routed
+    experts wait on the host meanwhile: one MoE layer's float32 experts
+    (45 GB) do not fit beside another's bf16 ones and the rest."""
+    from repro_torch.models import layers as L
+
+    c32, k = cfg.with_(dtype="float32"), cfg.first_k_dense
+    for i in range(k + 1, cfg.n_layers):
+        m = model.layer_params(i)["moe"]
+        for name in ("w_up", "w_down"):
+            m[name].data = m[name].data.cpu()
+
+    def wide(tree):
+        return torch.utils._pytree.tree_map(lambda t: t.float(), M._index_tree(tree))
+
+    with torch.no_grad():
+        h = L.embed(c32, wide(model["embed"]), batch["tokens"])
+        for i in range(cfg.n_layers):
+            layer = model.layer_params(i)
+            for t in layer.parameters():
+                t.data = t.data.cuda().float()
+            p = M._index_tree(layer)
+            h = (M.dense_block_full(c32, p, h, window=window) if i < k
+                 else M.moe_block_full(c32, p, h, window=window)[0])
+            for t in layer.parameters():
+                t.data = t.data.new_empty(0)
+            del p
+        h = L.apply_norm(c32, h, wide(model["final_norm"]))
+        return L.unembed(c32, wide(model["embed"]), h)
+
+
+def mla_block_plans(torch, M, cfg, model, cfs, h0, card):
+    """Each block plan of the first per-block forward, traced again on its
+    first layer's own input (a replay: no search): stages, every loop with
+    its chunks, the predicted unchunked and chunked peaks, the values live
+    at the chunked peak, and the first layer's measured chunked peak
+    against the prediction (within 5%).  The dense prefix's first layer is
+    layer 0, the MoE block's layer ``first_k_dense``, whose input the
+    dense plan's replays make.  Returns the plans and that input."""
+    from repro_torch.core import stats
+
+    k, W = cfg.first_k_dense, cfg.sliding_window
+    out, x = {}, h0
+    for tag, layer in ((f"densepre{W}", 0), (f"moe{W}", k)):
+        cf, p = cfs[tag], M._index_tree(model.layer_params(layer))
+        if layer:
+            with torch.no_grad():
+                for i in range(k):
+                    x = cfs[f"densepre{W}"](M._index_tree(model.layer_params(i)), x)
+        r = cf.autochunk_result
+        before = stats.snapshot()
+        planned = cf.trace(p, x).search()
+        check(stats.delta(before)["search_passes"] == 0, f"{tag}: the replay searched")
+        loops, live = labelled_loops(planned), live_at_peak(planned)
+        del planned
+        with torch.no_grad():
+            cf(p, x)
+            _, peak, ms = measure_forward(torch, cf, (p, x))
+        print(f"[block] mla {tag}: one compile (host seconds trace {r.trace_s:.2f}, search"
+              f" {r.search_s:.2f}, compile {r.elapsed_s - r.trace_s - r.search_s:.2f}),"
+              f" {len(r.plan)} stages; predicted block peak unchunked {r.baseline_peak} B (not"
+              f" run: beside the weights it does not fit the card) -> chunked {r.final_peak} B"
+              f" ({1 - r.final_peak / r.baseline_peak:.1%} less; budget {r.budget_bytes} B,"
+              f" {'within' if r.final_peak <= r.budget_bytes else 'above'} it)")
+        for kind, c, n in loops:
+            print(f"[block] mla {tag} loop {kind}: {n} chunks of {c}"
+                  + (" (the MLA scores: q_nope k_nope^T + q_rope k_rope^T, generic)"
+                     if kind == "scores" else ""))
+        print(f"[block] mla {tag} values live at the predicted peak: "
+              + ", ".join(f"{op} {tuple(shape)} {b} B" for b, op, shape in live))
+        print(f"[block] mla {tag} layer {layer} activation peak: chunked {peak} B (predicted"
+              f" {r.final_peak} B, {peak / r.final_peak:.4f}x); {ms:.2f} ms; {card}")
+        check(abs(peak - r.final_peak) <= 0.05 * r.final_peak,
+              f"mla {tag} chunked peak {peak} B is not within 5% of the predicted"
+              f" {r.final_peak} B")
+        check(not any("attention" in kind for kind, _, _ in loops),
+              f"mla {tag}: an attention kernel dispatched on the summed scores: {loops}")
+        check(any(kind == "scores" for kind, _, _ in loops),
+              f"mla {tag}: the scores are not chunked: {loops}")
+        out[tag] = dict(layer=layer, stages=len(r.plan), trace_s=r.trace_s, search_s=r.search_s,
+                        pred_unchunked=r.baseline_peak, pred_chunked=r.final_peak,
+                        budget_bytes=r.budget_bytes, peak=peak, ms=ms,
+                        loops=[dict(kind=kk, chunk=c, chunks=n) for kk, c, n in loops],
+                        swiglu_chunks=sum(n for kk, _, n in loops if kk == "swiglu"),
+                        live_at_peak=[list(t) for t in live])
+    return out, x
+
+
+def run_mla_forward(torch, F, CA, CF, stats, M, flush, card):
+    """deepseek-v3-671b at full width, its depth cut to the 3 dense layers
+    and 2 MoE layers (plus the MTP head's params), bf16, random weights,
+    the list form, the earlier phases' weights freed first.  At S 8192 the
+    unchunked block cannot run beside its weights, so the forward runs per
+    block at budget 0.01 (one plan for the dense prefix, ``densepre8192``,
+    one for the MoE blocks, ``moe8192``, each compiled at its first layer
+    and replayed for the others), counts zeroed just before and read just
+    after: ``chunked_ffn`` launched for every SwiGLU chunk of the plans and
+    no attention kernel (MLA's scores are a sum of two products).  The
+    plans and first-layer peaks (within 5%), the first MoE layer's routing
+    at capacity 320, ``chunked_ffn`` on layer 0's own calls (f 18432) and
+    on the first MoE layer's shared expert (f 2048) against its plain
+    version (bf16 and f32) and its time at both shapes.  At S 2048 the
+    forward unbudgeted and per block, bf16 against a float32 forward of
+    the same weights (per block no further than 1.5x unbudgeted), and the
+    MTP head once.  Then float32 at 2 layers (one dense, one MoE): per
+    block within 1e-3 of unbudgeted in logits, 1e-6 in aux."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ChunkConfig, autochunk
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+
+    run = MLA_RUN
+    t_phase = time.perf_counter()
+    # each MoE layer's routed w_up is drawn as one 30 GB f32 tensor; in
+    # fixed segments the first layer's freed draw is split by the smaller
+    # weights after it and the second's finds no room, so this phase
+    # allocates in expandable segments.  The earlier phases' engines hold
+    # reference cycles: collect them first, or their tensors stay on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    set_allocator(torch, "expandable_segments:True")
+    print(f"[mla] on the card before the weights: {torch.cuda.memory_allocated()} B allocated")
+    cfg = get_config(run["arch"]).with_(scan_layers=False, n_layers=run["n_layers"])
+    cfg_ac = cfg.with_(autochunk_budget=run["budget"])
+    W, S, n_layers, k = cfg.sliding_window, run["seq_len"], cfg.n_layers, cfg.first_k_dense
+    V, E = cfg.vocab_size, cfg.n_experts_padded
+    dtag, mtag = f"densepre{W}", f"moe{W}"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(run["seed"]),
+                          device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    wb = mla_weight_bytes(model)
+    print(f"[mla] deepseek-v3-671b bf16 d={cfg.d_model} H={cfg.n_heads} q_lora"
+          f" {cfg.q_lora_rank} kv_lora {cfg.kv_lora_rank} qk_nope {cfg.qk_nope_dim} qk_rope"
+          f" {cfg.qk_rope_dim} v {cfg.v_head_dim}; {k} dense layers (f {cfg.d_ff}) and"
+          f" {n_layers - k} MoE layers ({cfg.n_experts} experts top-{cfg.experts_per_token},"
+          f" sigmoid routing, f {cfg.moe_d_ff}, {cfg.n_shared_experts} shared), vocab {V},"
+          f" MTP head: weights built on the card in {build_s:.2f}s, {wb['total']} B (dense"
+          f" block {wb['dense_block']} B: MLA attention {wb['attention']} B, MLP {wb['mlp']}"
+          f" B; MoE block {wb['moe_block']} B: routed w_up {wb['routed_up']} B, w_down"
+          f" {wb['routed_down']} B, shared {wb['shared']} B, router {wb['router']} B;"
+          f" embedding and head {wb['embedding']} B; MTP proj {wb['mtp_proj']} B, block"
+          f" {wb['mtp_block']} B)")
+    check(wb["total"] == run["weight_bytes"], f"mla weights {wb['total']} B,"
+          f" want {run['weight_bytes']}")
+    check((wb["dense_block"], wb["moe_block"], wb["embedding"], wb["mtp_proj"])
+          == (1_166_966_784, 23_018_242_048, 3_706_716_160, 205_520_896),
+          f"mla weight parts {wb}")
+    rng = np.random.default_rng(run["seed"])
+    batch = {"tokens": torch.tensor(rng.integers(0, V, (1, S)), device="cuda")}
+
+    def per_block():
+        return M.forward(cfg_ac, model, batch, window=W)
+
+    # the first per-block forward: one search per block kind, then replays
+    M._AC_CACHE.clear()
+    before = stats.snapshot()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y1, aux1 = per_block()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    d = stats.delta(before)
+    del y1
+    cfs = {key[2]: cf for key, cf in M._AC_CACHE.items()}
+    check(set(cfs) == {dtag, mtag}, f"mla plans {sorted(cfs)}")
+    check(cfs[dtag].counters["compiles"] == 1 and cfs[mtag].counters["compiles"] == 1
+          and cfs[dtag].counters["shape_hits"] == k - 1
+          and cfs[mtag].counters["shape_hits"] == n_layers - k - 1,
+          f"first forward: {cfs[dtag].stats()}, {cfs[mtag].stats()}")
+    print(f"[block] mla: first per-block forward {first_s:.2f}s ({d['search_passes']} search"
+          f" passes); dispatch hits {d['kernel_dispatch_hits']} (computed mask"
+          f" {d['kernel_dispatch_computed_mask']}), misses {d['kernel_dispatch_misses']}")
+    check(d["kernel_dispatch_computed_mask"] == 0, "an attention kernel matched MLA")
+    h0 = M.embed_inputs(cfg, model, batch)[0]
+    plans, hk = mla_block_plans(torch, M, cfg, model, cfs, h0, card)
+    pk = M._index_tree(model.layer_params(k))
+
+    # the first MoE layer's routing at capacity, and its shared expert's
+    # input, from its attention half compiled under the same budget
+    attn_half = autochunk(lambda p, x: M.attn_apply_full(cfg, p, x, None, window=W, causal=True),
+                          ChunkConfig.from_scalar(run["budget"], weight_argnums=(0,),
+                                                  dim_blocklist=(0,)))
+    with torch.no_grad():
+        hn = L.apply_norm(cfg, attn_half(pk, hk), pk["ln2"])
+        idx = MOE.route(cfg, hn.reshape(-1, cfg.d_model), pk["moe"]["router"])[0]
+    del attn_half
+    cap = MOE.capacity(cfg, S)
+    counts = torch.bincount(idx.flatten(), minlength=E)
+    dropped, over = int((counts - cap).clamp(min=0).sum()), int((counts > cap).sum())
+    print(f"[mla] layer {k} (the first MoE layer) routing at S={S}: capacity {cap} a expert;"
+          f" assignments per expert min {int(counts.min())} max {int(counts.max())}; {over}"
+          f" experts over capacity, {dropped} of {S * cfg.experts_per_token} assignments"
+          f" dropped")
+    check(cap == 320, f"capacity {cap}, want 320")
+
+    # chunked_ffn on layer 0's own calls and on the shared expert's
+    errs = {}
+    p0 = M._index_tree(model.layer_params(0))
+    calls = capture_ffn_calls(torch, CF, lambda: cfs[dtag](p0, h0))
+    check(len(calls) == plans[dtag]["swiglu_chunks"] > 0,
+          f"{len(calls)} chunked_ffn calls in layer 0, plan {plans[dtag]['loops']}")
+    hold_calls_both_dtypes(torch, "chunked_ffn", "mla densepre layer 0",
+                           [(c, {}) for c in calls], CF.chunked_ffn, CF.chunked_ffn_plain, errs)
+    dense_rows = calls[0][0].shape[0]
+    del calls
+    calls = capture_ffn_calls(torch, CF, lambda: cfs[mtag](pk, hk))
+    check(len(calls) == plans[mtag]["swiglu_chunks"],
+          f"{len(calls)} chunked_ffn calls in layer {k}, plan {plans[mtag]['loops']}")
+    sh = pk["moe"]["shared"]
+    f_sh = sh["w_out"].shape[0]
+    label = f"mla shared expert layer {k}"
+    if not calls:
+        # the plan leaves the shared expert's SwiGLU whole (an eager mlp):
+        # the kernel held on that one call as the wrapper would take it,
+        # the layer's own normed input against the shared expert's weights
+        calls = [(hn.reshape(-1, cfg.d_model), sh["w_in"][:, f_sh:], sh["w_in"][:, :f_sh],
+                  sh["w_out"])]
+        label += " (unchunked in the plan; its whole call)"
+    hold_calls_both_dtypes(torch, "chunked_ffn", label, [(c, {}) for c in calls],
+                           CF.chunked_ffn, CF.chunked_ffn_plain, errs)
+    shared_rows = calls[0][0].shape[0]
+    del calls, hn, idx
+
+    # the whole forward per block, counts zeroed just before, read just after
+    hits = {tag: cf.counters["shape_hits"] for tag, cf in cfs.items()}
+    before = stats.snapshot()
+    CA.computed_attention.launches = CA.masked_attention.launches = 0
+    CF.chunked_ffn.launches = 0
+    with torch.no_grad():
+        (y1, aux1), peak1, ms1 = measure_forward(torch, per_block, ())
+    n_ffn, n_attn = CF.chunked_ffn.launches, CA.computed_attention.launches
+    n_masked = CA.masked_attention.launches
+    d = stats.delta(before)
+    want_ffn = k * plans[dtag]["swiglu_chunks"] + (n_layers - k) * plans[mtag]["swiglu_chunks"]
+    check(d["search_passes"] == 0 and cfs[dtag].counters["shape_hits"] - hits[dtag] == k
+          and cfs[mtag].counters["shape_hits"] - hits[mtag] == n_layers - k,
+          f"second forward: {d['search_passes']} search passes")
+    check(n_ffn == want_ffn > 0, f"chunked_ffn launched {n_ffn} times, want {want_ffn}")
+    check(n_attn == 0 and n_masked == 0,
+          f"attention kernels launched {n_attn} + {n_masked} times on MLA")
+    check(bool(torch.isfinite(y1[..., :V]).all()), "non-finite mla logits")
+    check(bool(torch.isfinite(aux1)) and float(aux1) > 0, f"mla aux loss {float(aux1)}")
+    print(f"[forward] deepseek-v3-671b L={n_layers} S={S} per block at budget {run['budget']}:"
+          f" whole-forward peak {peak1} B beside {wb['total']} B of weights, time {ms1:.2f} ms;"
+          f" chunked_ffn launches {n_ffn} = {k} x {plans[dtag]['swiglu_chunks']} +"
+          f" {n_layers - k} x {plans[mtag]['swiglu_chunks']} SwiGLU chunks; computed_attention"
+          f" {n_attn}, masked_attention {n_masked} (MLA's scores: generic loops); aux loss"
+          f" {float(aux1):.6f}; the unchunked forward does not run (predicted block peaks"
+          f" {plans[dtag]['pred_unchunked']} / {plans[mtag]['pred_unchunked']} B); {card}")
+    del y1, h0, hk, p0, pk
+
+    # chunked_ffn's time at the new width: the dense MLP's chunk and the
+    # shared expert's
+    ffn_timed = {"dense": time_ffn_kernel(torch, F, CF, cfg, dense_rows, flush, card),
+                 "shared": time_ffn_kernel(torch, F, CF, cfg.with_(d_ff=f_sh), shared_rows,
+                                           flush, card)}
+
+    # S 2048: unbudgeted beside per block, against a float32 forward; the
+    # MTP head once
+    S2 = run["short_len"]
+    batch = {"tokens": torch.tensor(rng.integers(0, V, (1, S2)), device="cuda")}
+    with torch.no_grad():
+        (y16u, aux_u), peak_u, ms_u = measure_forward(
+            torch, lambda: M.forward(cfg, model, batch, window=W), ())
+        M.forward(cfg_ac, model, batch, window=W)
+        (y16c, aux_c), peak_c, ms_c = measure_forward(
+            torch, lambda: M.forward(cfg_ac, model, batch, window=W), ())
+        h_emb = M.embed_inputs(cfg, model, batch)[0]
+        mtp = M.mtp_logits(cfg, model, batch, h_emb)
+    check(tuple(mtp.shape) == (1, S2 - 1, cfg.vocab_padded)
+          and bool(torch.isfinite(mtp[..., :V]).all()), f"mtp logits {tuple(mtp.shape)}")
+    print(f"[forward] deepseek-v3-671b L={n_layers} S={S2}: unbudgeted peak {peak_u} B,"
+          f" {ms_u:.2f} ms, aux {float(aux_u):.6f}; per block peak {peak_c} B, {ms_c:.2f} ms,"
+          f" aux {float(aux_c):.6f}; mtp_logits {tuple(mtp.shape)}, finite")
+    del mtp, h_emb
+    M._AC_CACHE.clear()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    y32 = mla_forward_fp32(torch, M, cfg, model, batch, W)
+    fp32_s = time.perf_counter() - t0
+    err_u, err_c = max_logit_err(y16u, y32, V), max_logit_err(y16c, y32, V)
+    print(f"[forward] deepseek-v3-671b bf16 L={n_layers} S={S2} against the float32 logits of"
+          f" the same weights (widened layer by layer as they run, the second MoE layer's"
+          f" experts from the host, {fp32_s:.2f}s):"
+          f" unbudgeted max_abs_err {err_u:.3e}, per block {err_c:.3e}"
+          f" ({err_c / err_u:.3f}x; limit 1.5x); {card}")
+    check(err_c <= 1.5 * err_u, f"bf16 mla per-block logits stray {err_c} from float32, the"
+          f" unbudgeted bf16 ones {err_u}")
+    del y16u, y16c, y32, model, batch
+    M._AC_CACHE.clear()
+    torch.cuda.empty_cache()
+
+    # float32 at one dense and one MoE layer: per block against unbudgeted
+    cfg32 = cfg.with_(dtype="float32", n_layers=2, first_k_dense=1)
+    model = M.init_params(cfg32, torch.Generator(device="cuda").manual_seed(run["fp32_seed"]),
+                          device="cuda")
+    batch = {"tokens": torch.tensor(np.random.default_rng(run["fp32_seed"])
+                                    .integers(0, V, (1, S2)), device="cuda")}
+    with torch.no_grad():
+        y0, a0 = M.forward(cfg32, model, batch, window=W)
+        y1, a1 = M.forward(cfg32.with_(autochunk_budget=run["budget"]), model, batch, window=W)
+    err32, aerr = max_logit_err(y1, y0, V), abs(float(a1) - float(a0))
+    stages = {key[2]: len(cf.autochunk_result.plan) for key, cf in M._AC_CACHE.items()}
+    print(f"[forward] deepseek-v3-671b per-block fp32 L=2 (1 dense, 1 MoE) S={S2}: stages"
+          f" {stages}; per-block vs unbudgeted logits max_abs_err {err32:.3e} (limit 1e-3), aux"
+          f" {float(a0):.8f} vs {float(a1):.8f} (|delta| {aerr:.3e}; limit 1e-6)")
+    check(err32 <= 1e-3 and aerr <= 1e-6, f"fp32 mla per-block logits {err32}, aux {aerr}")
+    del y0, y1, model, batch
+    M._AC_CACHE.clear()
+    torch.cuda.empty_cache()
+    set_allocator(torch, "expandable_segments:False")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[mla] phase done in {phase_s:.1f}s")
+    return dict(weight_bytes=wb, build_s=build_s, seconds_first=first_s, plans=plans,
+                capacity=cap, dropped_first_moe_layer=dropped, experts_over_capacity=over,
+                peak=peak1, ms=ms1, chunked_ffn_launches=n_ffn, attention_launches=n_attn,
+                masked_launches=n_masked, aux=float(aux1), ffn_timed=ffn_timed, errs=errs,
+                short=dict(peak_unbudgeted=peak_u, ms_unbudgeted=ms_u, peak_per_block=peak_c,
+                           ms_per_block=ms_c, bf16_vs_fp32_unchunked=err_u,
+                           bf16_vs_fp32_per_block=err_c, fp32_widen_s=fp32_s),
+                fp32_logits_err=err32, fp32_aux_err=aerr, fp32_stages=stages, seconds=phase_s)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3968,6 +4380,12 @@ def main() -> int:
     from repro_torch.serving import PagedServeEngine, Request
 
     # ---- 1. device --------------------------------------------------------
+    t_start = time.perf_counter()
+
+    def lap(name):
+        print(f"[phase] {name} done {time.perf_counter() - t_start:.1f}s into the script",
+              flush=True)
+
     card = card_line()
     print(f"[device] {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3986,6 +4404,7 @@ def main() -> int:
     for name, (log, seconds) in builds.items():
         print(f"[build] {name}.cu with nvcc in {seconds:.2f}s")
         ptxas_report(name, log)
+    lap("build")
     # which route each redesigned kernel took: tensor-core instructions in
     # its SASS (the bf16 attention and FFN kernels must have HGMMA, the bf16
     # SSD kernel HMMA or HGMMA, the f32 ones, the mask's tile pre-pass and
@@ -4099,6 +4518,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     prefix_serve = serve_prefix(torch, PA, stats, M, card)
     prefix_serve["cli"] = serve_prefix_cli(torch, stats)
+    lap("serve, prefix")
     for dt_name, err in prefix_serve["paged_errs"].items():
         max_err[dt_name] = max(max_err[dt_name], err)
 
@@ -4157,6 +4577,7 @@ def main() -> int:
     cache_run = run_cache_phase(torch, CA, stats, M, cfg_c, cold, card)
     del cold
     torch.cuda.empty_cache()
+    lap("compile, cache")
 
     # ---- 9. the chunked-attention kernels against their plain versions --
     c_chunk, ext = fwd["auto"]["chunk"], COMPILE["seq_len"]
@@ -4191,6 +4612,7 @@ def main() -> int:
 
     # ---- 13b. phi3-mini-3.8b per block: attention (hd 96) and MLP kernels --
     phi3 = run_phi3_forward(torch, CA, CF, stats, M, card)
+    lap("attention kernels, minitron and phi3 per block")
 
     # ---- 13c. the fixed-slot engine: phi3-mini-3.8b past its window ------
     # (counts zeroed just before serving, read just after); the block plans
@@ -4201,6 +4623,7 @@ def main() -> int:
     slot = run_slot_phase(torch, CA, CF, stats, M, flush, card)
     for (kname, dt_name), err in slot.pop("errs").items():
         attn_err[(kname, dt_name)] = max(attn_err.get((kname, dt_name), 0.0), err)
+    lap("slot")
 
     # ---- 14. the scan kernels against their plain versions ---------------
     # mamba2's full shape, a length the chunk does not divide, the reduced
@@ -4256,6 +4679,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     hyb_budget.update(check_hybrid_budget_logits(torch, M, card))
     torch.cuda.empty_cache()
+    lap("scans, ssm and hybrid forwards")
 
     # ---- 16c. the fixed-slot engine on mamba2-1.3b and recurrentgemma-9b --
     # (counts zeroed just before serving, read just after); the prefill
@@ -4270,6 +4694,8 @@ def main() -> int:
             else:
                 table[dt_name] = max(table.get(dt_name, 0.0), err)
     torch.cuda.empty_cache()
+
+    lap("slot-ssm")
 
     # ---- 17. the scans' times at their models' shapes ---------------------
     scan_timed = time_scans(torch, SS, RS, flush, card)
@@ -4298,6 +4724,7 @@ def main() -> int:
     # both kernels on layer 0's own calls; fp32 at 2 layers, bf16 at 4
     moe = run_moe_forward(torch, CA, CF, stats, M, card, attn_err, ffn_err)
     torch.cuda.empty_cache()
+    lap("scan and head-dim times, moe")
 
     # ---- 17d. qwen2-moe-a2.7b served through the fixed-slot engine ------
     # (the [moe] weights freed first; counts zeroed just before serving,
@@ -4311,6 +4738,18 @@ def main() -> int:
         else:
             attn_err[(kname, dt_name)] = max(attn_err.get((kname, dt_name), 0.0), err)
     torch.cuda.empty_cache()
+    lap("moe-serve")
+
+    # ---- 17e. deepseek-v3-671b's MLA forward per block (5 layers) --------
+    # (the [moe-serve] weights freed first; counts zeroed just before the
+    # per-block forward, read just after); the plans, chunked_ffn on layer
+    # 0's and the shared expert's calls, S 2048 against float32, the MTP
+    # head, fp32 at 2 layers
+    mla = run_mla_forward(torch, F, CA, CF, stats, M, flush, card)
+    for (kname, dt_name), err in mla.pop("errs").items():
+        ffn_err[dt_name] = max(ffn_err.get(dt_name, 0.0), err)
+    torch.cuda.empty_cache()
+    lap("mla")
 
     # ---- 18. kernels lines and the result --------------------------------
     launch_counts = {"paged_attention": launches,
@@ -4331,10 +4770,14 @@ def main() -> int:
     moe_launches = {"computed_attention": moe["attention_launches"],
                     "chunked_ffn": moe["chunked_ffn_launches"]}
     moe_serve_launches = moe_serve["launches"]
+    mla_launches = {"computed_attention": mla["attention_launches"],
+                    "masked_attention": mla["masked_launches"],
+                    "chunked_ffn": mla["chunked_ffn_launches"]}
     print("kernels: " + json.dumps([{"name": k, "launches": n,
                                      "slot_ssm_launches": slot_ssm_launches.get(k, 0),
                                      "moe_launches": moe_launches.get(k, 0),
                                      "moe_serve_launches": moe_serve_launches.get(k, 0),
+                                     "mla_launches": mla_launches.get(k, 0),
                                      "max_err_bf16": errs[k]["bfloat16"],
                                      "max_err_fp32": errs[k]["float32"]}
                                     for k, n in launch_counts.items()]))
@@ -4388,6 +4831,8 @@ def main() -> int:
     entries[1]["moe_serve_launches"] = moe_serve_launches["computed_attention"]
     entries[1]["moe_serve"] = moe_serve
     entries[2]["moe_serve_launches"] = moe_serve_launches["masked_attention"]
+    for i, kname in ((1, "computed_attention"), (2, "masked_attention")):
+        entries[i]["mla_launches"] = mla_launches[kname]
     entries[1]["tensor_core_instructions"] = routes["chunked_attention"]
     entries[2]["tensor_core_instructions"] = routes["chunked_attention"]
     # computed_attention also carries the per-block path: its launches there
@@ -4411,6 +4856,8 @@ def main() -> int:
         "moe_forward": {k: moe[k] for k in ("chunked_ffn_launches", "loops", "stages")},
         "moe_serve_launches": moe_serve_launches["chunked_ffn"],
         "moe_serve": {k: moe_serve[k] for k in ("launches", "plans")},
+        "mla_launches": mla_launches["chunked_ffn"],
+        "mla_forward": mla,
         "tensor_core_instructions": routes["chunked_ffn"],
     })
     for kname, line, run, arch in (("ssd_scan", 78, ssm, "mamba2-1.3b"),

@@ -44,12 +44,14 @@ def _normal(gen, shape, scale: float, dtype, device):
     """``N(0, 1) * scale`` drawn in f32 from ``gen``, cast to ``dtype``.
 
     On the ``meta`` device nothing is drawn: the planner traces block
-    shapes without materializing weights.
+    shapes without materializing weights.  The scale is applied in place,
+    so a bf16 weight holds at most its f32 draw and itself at once
+    (deepseek-v3's routed ``w_up`` is 15 GB in bf16).
     """
     if torch.device(device).type == "meta":
         return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 def norm_params(cfg, d, *, device):

@@ -1,6 +1,7 @@
-"""Model assembly: init and full-sequence forward of the dense, MoE, SSM and
-hybrid families; the serving caches, decode step and prefill of the dense,
-vlm, MoE (without MLA), SSM and hybrid families.
+"""Model assembly: init and full-sequence forward of the dense, MoE (MLA
+included), SSM and hybrid families, and the MTP head; the serving caches,
+decode step and prefill of the dense, vlm, MoE (without MLA), SSM and
+hybrid families.
 
 Parameters live in a :class:`Model` (an ``nn.Module``) whose ``state_dict``
 keys follow the JAX package's pytree paths: ``blocks.0.attn.wq`` for the
@@ -11,6 +12,7 @@ onto its counterpart in the JAX package's ``models/model.py``.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
@@ -21,6 +23,7 @@ from torch.utils import _pytree as pytree
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import layers as L
+from . import mla as MLA
 from . import moe as MOE
 from . import rglru as RG
 from . import ssm as SSM
@@ -92,11 +95,6 @@ def logits_fn(model: Model):
     return fn
 
 
-def _no_mla():
-    return NotImplementedError("MLA attention: the port has the dense, MoE, ssm and hybrid"
-                               " families (ROADMAP queue A item 10 (c))")
-
-
 def _index_tree(tree: ParamTree, i: Optional[int] = None) -> Dict[str, Any]:
     """A module tree as a nested dict of its tensors (entry ``i`` of each,
     for the stacked form)."""
@@ -112,22 +110,25 @@ def _index_tree(tree: ParamTree, i: Optional[int] = None) -> Dict[str, Any]:
 # Parameter construction
 # ===========================================================================
 
-def dense_block_params(cfg, gen, *, device, d_ff=None):
+def _attn_block_params(cfg, gen, *, device):
     return {
         "ln1": L.norm_params(cfg, cfg.d_model, device=device),
         "ln2": L.norm_params(cfg, cfg.d_model, device=device),
-        "attn": L.attn_params(cfg, gen, device=device),
-        "mlp": L.mlp_params(cfg, gen, device=device, f=d_ff or cfg.d_ff),
+        "attn": (MLA.mla_params(cfg, gen, device=device) if cfg.mla
+                 else L.attn_params(cfg, gen, device=device)),
     }
+
+
+def dense_block_params(cfg, gen, *, device, d_ff=None):
+    p = _attn_block_params(cfg, gen, device=device)
+    p["mlp"] = L.mlp_params(cfg, gen, device=device, f=d_ff or cfg.d_ff)
+    return p
 
 
 def moe_block_params(cfg, gen, *, device):
-    return {
-        "ln1": L.norm_params(cfg, cfg.d_model, device=device),
-        "ln2": L.norm_params(cfg, cfg.d_model, device=device),
-        "attn": L.attn_params(cfg, gen, device=device),
-        "moe": MOE.moe_params(cfg, gen, device=device),
-    }
+    p = _attn_block_params(cfg, gen, device=device)
+    p["moe"] = MOE.moe_params(cfg, gen, device=device)
+    return p
 
 
 def ssm_block_params(cfg, gen, *, device):
@@ -160,8 +161,6 @@ def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0,
     """
     if cfg.family not in FAMILIES:
         raise ValueError(cfg.family)
-    if cfg.mla:
-        raise _no_mla()
     dev = resolve_device(device)
     if dev.type == "meta":
         generator = None
@@ -187,6 +186,12 @@ def init_params(cfg: ModelConfig, generator: Union[torch.Generator, int] = 0,
         block_params = ssm_block_params if cfg.family == "ssm" else dense_block_params
         blocks = [block_params(cfg, generator, device=dev) for _ in range(cfg.n_layers)]
         p["blocks"] = _stack(blocks) if cfg.scan_layers else blocks
+    if cfg.mtp:
+        d = cfg.d_model
+        p["mtp_proj"] = L._normal(generator, (2 * d, d), 1.0 / math.sqrt(2 * d),
+                                  cfg.torch_dtype, dev)
+        p["mtp_block"] = dense_block_params(cfg, generator, device=dev)
+        p["mtp_norm"] = L.norm_params(cfg, d, device=dev)
     return Model(cfg, p)
 
 
@@ -198,6 +203,9 @@ def attn_apply_full(cfg, p, x, positions=None, *, window, causal):
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     h = L.apply_norm(cfg, x, p["ln1"])
+    if cfg.mla:
+        o, _ = MLA.mla_attention_prefill(cfg, p["attn"], h, positions, window=window)
+        return x + o
     q, k, v = L.attn_project_qkv(cfg, p["attn"], h, positions)
     o = L.gqa_attention(q, k, v, q_pos=positions, kv_pos=positions,
                         causal=causal, window=window)
@@ -313,9 +321,10 @@ def _run_blocks(cfg: ModelConfig, params: Model, h, tag: str, block):
 
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: Model, batch, *, window: Optional[int] = None):
-    """Full-sequence forward of the dense, MoE, SSM and hybrid families.
-    Returns (logits, aux_loss): the MoE routers' load-balance loss summed
-    over the MoE layers, 0 for the other families.
+    """Full-sequence forward of the dense, MoE, SSM and hybrid families
+    (MoE with MLA attention too, as deepseek-v3 has it; MLA is not served
+    yet).  Returns (logits, aux_loss): the MoE routers' load-balance loss
+    summed over the MoE layers, 0 for the other families.
 
     With ``cfg.autochunk_budget`` each block runs the AutoChunk plan of one
     block, compiled at the first layer of its kind and replayed for the
@@ -323,13 +332,14 @@ def forward(cfg: ModelConfig, params: Model, batch, *, window: Optional[int] = N
     attention block, tag ``hyb_attn``, and its RG-LRU block, ``hyb_rg``),
     and for MoE one for its dense prefix (``densepre{window}``) and one for
     its MoE blocks (``moe{window}``, returning the block's aux loss too).
-    The SSM and RG-LRU scans stay one kernel op inside the compiled block.
+    The SSM and RG-LRU scans stay one kernel op inside the compiled block;
+    MLA's summed scores stay a generic chunk loop (no attention kernel
+    computes them).  The MTP head is :func:`mtp_logits`, which the forward
+    does not call.
     """
     fam = cfg.family
     if fam not in FAMILIES:
         raise ValueError(fam)
-    if cfg.mla:
-        raise _no_mla()
     h, _ = embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if fam in DENSE_FAMILIES:
@@ -369,6 +379,19 @@ def forward(cfg: ModelConfig, params: Model, batch, *, window: Optional[int] = N
     h = L.apply_norm(cfg, h, params["final_norm"])
     logits = L.unembed(cfg, params["embed"], h)
     return logits, aux
+
+
+@torch.no_grad()
+def mtp_logits(cfg: ModelConfig, params, batch, h_final):
+    """DeepSeek-V3 MTP head: predict token t+2 from (h_t, emb_{t+1}).
+    ``h_final`` (B,S,d); returns (B,S-1,V)."""
+    tokens = batch["tokens"]
+    emb_next = L.embed(cfg, params["embed"], tokens[:, 1:])
+    h_in = torch.cat([L.apply_norm(cfg, h_final[:, :-1], params["mtp_norm"]), emb_next],
+                     dim=-1) @ params["mtp_proj"]
+    positions = torch.arange(h_in.shape[1], dtype=torch.int32, device=h_in.device)
+    h = dense_block_full(cfg, params["mtp_block"], h_in, positions)
+    return L.unembed(cfg, params["embed"], h)
 
 
 # ===========================================================================

@@ -363,9 +363,21 @@ def test_full_width_weight_bytes():
 
 @pytest.mark.parametrize("what", ["init_params", "forward"])
 def test_mla_still_raises_naming_its_item(what):
+    """MLA's forward is ported (tests/test_torch_mla.py holds it against the
+    JAX package): reduced deepseek-v3 builds, with its MLA and MTP params,
+    and its forward gives finite logits of the right shape.  Its decode
+    still raises naming ROADMAP queue A item 10 (c)."""
     cfg = get_config("deepseek-v3-671b").reduced()
+    model = M.init_params(cfg, 0, device="cpu")
+    if what == "init_params":
+        attn = model.layer_params(0)["attn"]
+        assert attn["w_uk"].shape == (cfg.n_heads, cfg.kv_lora_rank, cfg.qk_nope_dim)
+        assert model["mtp_proj"].shape == (2 * cfg.d_model, cfg.d_model)
+        assert all(p.dtype == torch.bfloat16 for n, p in model.named_parameters()
+                   if not n.endswith("moe.router"))
+    else:
+        lg, aux = M.forward(cfg, model, {"tokens": torch.zeros((1, 2), dtype=torch.int64)})
+        assert lg.shape == (1, 2, cfg.vocab_padded) and bool(torch.isfinite(lg).all())
+        assert bool(torch.isfinite(aux))
     with pytest.raises(NotImplementedError, match=re.escape("ROADMAP queue A item 10 (c)")):
-        if what == "init_params":
-            M.init_params(cfg, device="meta")
-        else:
-            M.forward(cfg, None, {"tokens": torch.zeros((1, 2), dtype=torch.int64)})
+        M.decode_step(cfg, model, None, torch.zeros((1, 1), dtype=torch.int64), 0)
