@@ -201,11 +201,14 @@ import concurrent.futures
 import gc
 import json
 import math
+import multiprocessing
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -222,6 +225,15 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 # last place of a value near 0.2).
 TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-3, 2.0 ** -7)}
 SERVE = dict(max_seqs=8, max_len=2048, page_size=16, budget=0.5, max_new=32)
+
+
+_T_START = time.perf_counter()      # reset when main() starts
+
+
+def lap(name):
+    """A ``[phase]`` line: where the script stands when ``name`` is done."""
+    print(f"[phase] {name} done {time.perf_counter() - _T_START:.1f}s into the script",
+          flush=True)
 
 
 def fail(msg: str) -> None:
@@ -918,6 +930,9 @@ def check_served_logits(torch, M, cfg32, seed, prompt, label=""):
     engine.run_ragged = lambda *a: captured.append(run_ragged(*a)) or captured[-1]
     engine.submit(Request(rid=0, prompt=prompt, max_new_tokens=1))
     engine.run()
+    # the spy holds the engine: put the method back, so that no reference
+    # cycle keeps the engine's pool on the card after it is deleted
+    del engine.run_ragged
     served = captured[-1][0]
     dense = M.forward(cfg32, params32, {"tokens": torch.tensor([prompt], device="cuda")})[0]
     dense = dense[0, -1]
@@ -1073,15 +1088,16 @@ def compare(torch, kname, label, got, want, tol, why=""):
     return err
 
 
-def compile_forward(torch, cfg, model, batch, *, mask_mode):
-    """Trace, search and compile the forward; returns (compiled, planned,
-    host seconds of each stage)."""
+def compile_forward(torch, cfg, model, batch, *, mask_mode, cache=None):
+    """Trace, search and compile the forward (its plan stored in ``cache``,
+    a ``PlanCache``, when given); returns (compiled, planned, host seconds
+    of each stage)."""
     from repro_torch.core import ChunkConfig, autochunk
     from repro_torch.models import model as M
 
     cf = autochunk(M.logits_fn(model), ChunkConfig(
         budget_ratio=COMPILE["budget"], max_stages=COMPILE["max_stages"],
-        mask_mode=mask_mode))
+        mask_mode=mask_mode), cache=cache)
     params = dict(model.named_parameters())
     t0 = time.perf_counter()
     traced = cf.trace(params, batch)
@@ -1179,31 +1195,82 @@ def run_compiled_forward(torch, CA, stats, M, cfg, card, *, mask_mode, keep=None
     return out
 
 
-def check_forward_fp32(torch, M, cfg, *, mask_mode):
-    """Chunked against unchunked logits in float32, at the full length: at
-    2048 tokens the unembed's 413 MB of f32 logits outweigh each layer's
-    attention (12 S^2 f32 grows past 50432 S at S ~ 4200), so the search
-    chunks no attention site there and the kernels would go unchecked."""
+def plan_forward_on_meta(cfg, mask_mode, seq_len, cache_dir):
+    """The ``[compile]`` cell's forward of ``cfg`` at ``seq_len`` under
+    ``mask_mode`` (budget 0.2), traced and searched on ``meta`` into the
+    on-disk plan cache ``cache_dir``, as the precompile CLI does; ``main``
+    runs it in a child process at low priority beside the phases before
+    ``[compile]``.  Returns (stages, host seconds of the trace and
+    search)."""
+    os.nice(10)
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.core import ChunkConfig, autochunk
+    from repro_torch.models import model as M
+
+    model = M.init_params(cfg, device="meta")
+    batch = {"tokens": torch.empty((1, seq_len), dtype=torch.int64, device="meta")}
+    t0 = time.perf_counter()
+    cf = autochunk(M.logits_fn(model), ChunkConfig(
+        budget_ratio=COMPILE["budget"], max_stages=COMPILE["max_stages"],
+        mask_mode=mask_mode), cache=cache_dir)
+    planned = cf.trace(dict(model.named_parameters()), batch).search()
+    return len(planned.plan.stages), time.perf_counter() - t0
+
+
+def check_forward_fp32(torch, M, cfg, keep, planned_on_meta, cache_dir,
+                       modes=("auto", "bool")):
+    """Chunked against unchunked logits in float32, at the full length, for
+    each mask mode: one float32 model and its unchunked logits, each mode's
+    compile held against them.  At 2048 tokens the unembed's 413 MB of f32
+    logits outweigh each layer's attention (12 S^2 f32 grows past 50432 S
+    at S ~ 4200), so the search chunks no attention site there and the
+    kernels would go unchecked.  Each mode's plan was searched on ``meta``
+    by a child process (``planned_on_meta``: mode -> a future of
+    :func:`plan_forward_on_meta`) into ``cache_dir``; the compile here
+    replays it (a plan-cache hit, no search).  The plan cache is kept with
+    the model in ``keep`` for the ``[cache]`` phase's float32 bucket
+    executable, whose plan at S 8192 is the "auto" one.  Returns the error
+    per mode."""
     import numpy as np
+    from repro_torch.core import stats
+    from repro_torch.core.plan import PlanCache
 
     cfg32 = cfg.with_(dtype="float32")
+    plans = PlanCache(cache_dir)
     S = COMPILE["seq_len"]
     model = M.init_params(cfg32, torch.Generator(device="cuda").manual_seed(4), device="cuda")
     rng = np.random.default_rng(4)
     batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (1, S)), device="cuda")}
-    compiled, planned, _ = compile_forward(torch, cfg32, model, batch, mask_mode=mask_mode)
-    n_dispatched = len(dispatched_loops(planned))
-    check(n_dispatched == cfg.n_layers, f"fp32: {n_dispatched} attention sites dispatched")
     params = dict(model.named_parameters())
     with torch.no_grad():
-        y1 = compiled(params, batch)
-        y0 = M.logits_fn(model)(params, batch)
-    err = float((y1[..., :cfg.vocab_size] - y0[..., :cfg.vocab_size]).abs().max())
-    print(f"[forward] {mask_mode}: fp32 S={S}, {len(compiled.result.plan)} stages,"
-          f" {n_dispatched} attention sites dispatched: chunked vs unchunked logits"
-          f" max_abs_err {err:.3e} (limit 1e-3)")
-    check(err <= 1e-3, f"fp32 chunked logits differ by {err}")
-    return err
+        y0 = M.logits_fn(model)(params, batch)[..., :cfg.vocab_size]
+    errs = {}
+    for mode in modes:
+        t0 = time.perf_counter()
+        stages, search_s = planned_on_meta[mode].result()
+        waited = time.perf_counter() - t0
+        before = stats.snapshot()
+        compiled, planned, seconds = compile_forward(torch, cfg32, model, batch, mask_mode=mode,
+                                                     cache=plans)
+        d = stats.delta(before)
+        check(d["plan_cache_hits"] == 1 and d["search_passes"] == 0
+              and len(planned.plan.stages) == stages,
+              f"fp32 {mode}: the meta plan did not replay: {d}")
+        n_dispatched = len(dispatched_loops(planned))
+        check(n_dispatched == cfg.n_layers, f"fp32: {n_dispatched} attention sites dispatched")
+        with torch.no_grad():
+            y1 = compiled(params, batch)
+        errs[mode] = err = float((y1[..., :cfg.vocab_size] - y0).abs().max())
+        print(f"[forward] {mode}: fp32 S={S}, {len(compiled.result.plan)} stages (searched on"
+              f" meta by a child process in {search_s:.2f} host seconds beside the earlier"
+              f" phases, {waited:.2f}s waited for it here; replayed here in {sum(seconds):.2f}"
+              f" host seconds, 0 search passes), {n_dispatched} attention sites dispatched:"
+              f" chunked vs unchunked logits max_abs_err {err:.3e} (limit 1e-3)")
+        check(err <= 1e-3, f"fp32 chunked logits differ by {err}")
+        del compiled, planned, y1
+    keep.update(model32=model, plans32=plans)
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -1221,9 +1288,9 @@ def stage_shapes(stages):
 
 def precompile_plans(cache_dir):
     """``python -m repro_torch.tools.precompile`` for the ``[compile]`` cell,
-    as a subprocess; returns (plans on disk, host seconds)."""
-    import os
-
+    as a subprocess; returns (plans on disk, host seconds, its output).
+    ``main`` starts it on a thread after the build, so its host seconds
+    overlap the phases before ``[cache]``."""
     cmd = [sys.executable, "-m", "repro_torch.tools.precompile", "--configs", "gpt-paper",
            "--full", "--seq-lens", str(COMPILE["seq_len"]), "--budgets", str(COMPILE["budget"]),
            "--max-stages", str(COMPILE["max_stages"]), "--cache-dir", str(cache_dir)]
@@ -1232,19 +1299,18 @@ def precompile_plans(cache_dir):
     proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
                           timeout=CACHE["precompile_timeout"])
     seconds = time.perf_counter() - t0
-    for line in (proc.stdout + proc.stderr).splitlines():
-        print(f"[cache] precompile: {line}")
-    check(proc.returncode == 0, f"precompile exited {proc.returncode}")
-    return len(list(Path(cache_dir).glob("*.json"))), seconds
+    lines = (proc.stdout + proc.stderr).splitlines()
+    return len(list(Path(cache_dir).glob("*.json"))), seconds, lines, proc.returncode
 
 
-def run_cache_phase(torch, CA, stats, M, cfg, cold, card):
+def run_cache_phase(torch, CA, stats, M, cfg, cold, card, precompiled, cache_dir):
     """Warm replay of the precompiled full-width plan from disk against the
     ``[compile]`` phase's cold compile (kept in ``cold``), then the canonical
-    bucket executable at S 8192, 6000 and 7000.  Kernel counts zeroed just
-    before each drive and read just after."""
-    import tempfile
-
+    bucket executable at S 8192, 6000 and 7000, and in float32 at S 6000
+    from the float32 check's plan (``cold["plans32"]``).  The precompile
+    subprocess (``precompiled``, a future of :func:`precompile_plans`)
+    wrote ``cache_dir``.  Kernel counts zeroed just before each drive and
+    read just after."""
     import numpy as np
     from repro_torch.core import ChunkConfig, autochunk
 
@@ -1252,115 +1318,127 @@ def run_cache_phase(torch, CA, stats, M, cfg, cold, card):
     knobs = dict(budget_ratio=COMPILE["budget"], max_stages=COMPILE["max_stages"])
     model, batch = cold["model"], cold["batch"]
     params = dict(model.named_parameters())
-    with tempfile.TemporaryDirectory(prefix="plans-") as cache_dir:
-        n_plans, pre_s = precompile_plans(cache_dir)
-        check(n_plans == 1, f"{n_plans} plans precompiled, want 1")
-        print(f"[cache] precompile gpt-paper S={S} budget {COMPILE['budget']} on meta:"
-              f" {n_plans} plan in {pre_s:.2f} host seconds (a subprocess, its start-up"
-              " included)")
+    t0 = time.perf_counter()
+    n_plans, pre_s, lines, rc = precompiled.result()
+    waited = time.perf_counter() - t0
+    for line in lines:
+        print(f"[cache] precompile: {line}")
+    check(rc == 0, f"precompile exited {rc}")
+    check(n_plans == 1, f"{n_plans} plans precompiled, want 1")
+    print(f"[cache] precompile gpt-paper S={S} budget {COMPILE['budget']} on meta:"
+          f" {n_plans} plan in {pre_s:.2f} host seconds (a subprocess, its start-up"
+          f" included, started after the build beside the phases before this one;"
+          f" {waited:.2f}s waited for it here)")
 
-        # ---- warm replay from disk --------------------------------------
-        cf = autochunk(M.logits_fn(model), ChunkConfig(**knobs), cache=cache_dir)
-        before = stats.snapshot()
+    # ---- warm replay from disk --------------------------------------
+    cf = autochunk(M.logits_fn(model), ChunkConfig(**knobs), cache=cache_dir)
+    before = stats.snapshot()
+    t0 = time.perf_counter()
+    warm = cf.compile(params, batch)
+    warm_s = time.perf_counter() - t0
+    d = stats.delta(before)
+    cold_s = sum(cold["seconds"])
+    cold_stages = stage_shapes(cold["planned"].plan.stages)
+    warm_stages = stage_shapes(warm.result.plan_stages)
+    print(f"[cache] warm compile from disk: plan_cache_hits {d['plan_cache_hits']},"
+          f" misses {d['plan_cache_misses']}, search passes {d['search_passes']},"
+          f" traces {d['trace_calls']}; {len(warm_stages)} stages"
+          f" {'equal to' if warm_stages == cold_stages else 'NOT equal to'} the cold"
+          f" compile's; host seconds cold {cold_s:.2f} (trace {cold['seconds'][0]:.2f},"
+          f" search {cold['seconds'][1]:.2f}, compile {cold['seconds'][2]:.2f}), warm"
+          f" {warm_s:.2f}")
+    check(d["plan_cache_hits"] == 1 and d["plan_cache_misses"] == 0,
+          f"warm compile: {d['plan_cache_hits']} hits, {d['plan_cache_misses']} misses")
+    check(d["search_passes"] == 0, f"warm compile ran {d['search_passes']} search passes")
+    check(warm.from_cache, "warm compile not from the cache")
+    check(warm_stages == cold_stages, f"warm stages {warm_stages} != cold {cold_stages}")
+    with torch.no_grad():
+        y_cold = cold["compiled"](params, batch)
+        warm(params, batch)                                 # warm-up
+        CA.computed_attention.launches = CA.masked_attention.launches = 0
+        y_warm, peak_warm, ms_warm = measure_forward(torch, warm, (params, batch))
+        launches = CA.computed_attention.launches
+    same = torch.equal(y_warm, y_cold)
+    diff = float((y_warm.float() - y_cold.float()).abs().max())
+    print(f"[cache] warm forward: computed_attention launches {launches} (cold"
+          f" {cold['launches']}), activation peak {peak_warm} B (cold {cold['peak1']} B),"
+          f" {ms_warm:.2f} ms; logits {'bit-equal to' if same else 'DIFFER from'} the"
+          f" cold compile's (max abs diff {diff:.3e}); {card}")
+    check(launches == cold["launches"],
+          f"warm forward launched computed_attention {launches} times")
+    check(same, f"warm logits differ from the cold compile's by {diff}: same plan,"
+          " same kernels, so they must be bit-equal")
+    del y_cold, y_warm, warm, cf
+
+    # ---- canonical bucket executable --------------------------------
+    cfb = autochunk(M.logits_fn(model), ChunkConfig(canonical_bucket_exec=True, **knobs),
+                    cache=cache_dir)
+    tokens = batch["tokens"]
+    with torch.no_grad():
         t0 = time.perf_counter()
-        warm = cf.compile(params, batch)
-        warm_s = time.perf_counter() - t0
-        d = stats.delta(before)
-        cold_s = sum(cold["seconds"])
-        cold_stages = stage_shapes(cold["planned"].plan.stages)
-        warm_stages = stage_shapes(warm.result.plan_stages)
-        print(f"[cache] warm compile from disk: plan_cache_hits {d['plan_cache_hits']},"
-              f" misses {d['plan_cache_misses']}, search passes {d['search_passes']},"
-              f" traces {d['trace_calls']}; {len(warm_stages)} stages"
-              f" {'equal to' if warm_stages == cold_stages else 'NOT equal to'} the cold"
-              f" compile's; host seconds cold {cold_s:.2f} (trace {cold['seconds'][0]:.2f},"
-              f" search {cold['seconds'][1]:.2f}, compile {cold['seconds'][2]:.2f}), warm"
-              f" {warm_s:.2f}")
-        check(d["plan_cache_hits"] == 1 and d["plan_cache_misses"] == 0,
-              f"warm compile: {d['plan_cache_hits']} hits, {d['plan_cache_misses']} misses")
-        check(d["search_passes"] == 0, f"warm compile ran {d['search_passes']} search passes")
-        check(warm.from_cache, "warm compile not from the cache")
-        check(warm_stages == cold_stages, f"warm stages {warm_stages} != cold {cold_stages}")
-        with torch.no_grad():
-            y_cold = cold["compiled"](params, batch)
-            warm(params, batch)                                 # warm-up
-            CA.computed_attention.launches = CA.masked_attention.launches = 0
-            y_warm, peak_warm, ms_warm = measure_forward(torch, warm, (params, batch))
-            launches = CA.computed_attention.launches
-        same = torch.equal(y_warm, y_cold)
-        diff = float((y_warm.float() - y_cold.float()).abs().max())
-        print(f"[cache] warm forward: computed_attention launches {launches} (cold"
-              f" {cold['launches']}), activation peak {peak_warm} B (cold {cold['peak1']} B),"
-              f" {ms_warm:.2f} ms; logits {'bit-equal to' if same else 'DIFFER from'} the"
-              f" cold compile's (max abs diff {diff:.3e}); {card}")
-        check(launches == cold["launches"],
-              f"warm forward launched computed_attention {launches} times")
-        check(same, f"warm logits differ from the cold compile's by {diff}: same plan,"
-              " same kernels, so they must be bit-equal")
-        del y_cold, y_warm, warm, cf
-
-        # ---- canonical bucket executable --------------------------------
-        cfb = autochunk(M.logits_fn(model), ChunkConfig(canonical_bucket_exec=True, **knobs),
-                        cache=cache_dir)
-        tokens = batch["tokens"]
-        with torch.no_grad():
-            t0 = time.perf_counter()
-            y = cfb(params, batch)             # the bucket's one compile, at S
-            torch.cuda.synchronize()
-            bucket_s = time.perf_counter() - t0
-            del y
+        y = cfb(params, batch)             # the bucket's one compile, at S
+        torch.cuda.synchronize()
+        bucket_s = time.perf_counter() - t0
+        del y
+        CA.computed_attention.launches = 0
+        y, peak_full, ms_full = measure_forward(torch, cfb, (params, batch))
+        launches_full = CA.computed_attention.launches
+        del y
+        before = stats.snapshot()
+        rows = []
+        for n in CACHE["bucket_lens"]:
             CA.computed_attention.launches = 0
-            y, peak_full, ms_full = measure_forward(torch, cfb, (params, batch))
-            launches_full = CA.computed_attention.launches
+            y, peak, ms = measure_forward(torch, cfb, (params, {"tokens": tokens[:, :n]}))
+            check(tuple(y.shape) == (1, n, cfg.vocab_padded), f"S={n}: shape {y.shape}")
+            check(bool(torch.isfinite(y[..., :cfg.vocab_size]).all()), f"S={n}: non-finite")
+            rows.append((n, peak, ms, CA.computed_attention.launches))
             del y
-            before = stats.snapshot()
-            rows = []
-            for n in CACHE["bucket_lens"]:
-                CA.computed_attention.launches = 0
-                y, peak, ms = measure_forward(torch, cfb, (params, {"tokens": tokens[:, :n]}))
-                check(tuple(y.shape) == (1, n, cfg.vocab_padded), f"S={n}: shape {y.shape}")
-                check(bool(torch.isfinite(y[..., :cfg.vocab_size]).all()), f"S={n}: non-finite")
-                rows.append((n, peak, ms, CA.computed_attention.launches))
-                del y
-            d = stats.delta(before)
-            # each length again, through its memoized pad / slice wrapper
-            again = [measure_forward(torch, cfb, (params, {"tokens": tokens[:, :n]}))[2]
-                     for n in CACHE["bucket_lens"]]
-        print(f"[cache] bucket executable (canonical_bucket_exec): compiled at S={S} from"
-              f" the cache in {bucket_s:.2f} host seconds (its first call included); at S={S}"
-              f" peak {peak_full} B, {ms_full:.2f} ms, computed_attention launches"
-              f" {launches_full}; then " + "; ".join(
-                  f"S={n} padded to {S}: peak {p} B ({p / peak_full:.3f}x), first call"
-                  f" {ms:.2f} ms (its meta shape pass included), again {t:.2f} ms, launches {k}"
-                  for (n, p, ms, k), t in zip(rows, again))
-              + f"; over the first calls bucket_exec_hits {d['bucket_exec_hits']}, traces"
-              f" {d['trace_calls']}, search passes {d['search_passes']}")
-        check(d["bucket_exec_hits"] == len(rows), f"bucket_exec_hits {d['bucket_exec_hits']}")
-        check(d["trace_calls"] == 0 and d["search_passes"] == 0,
-              f"warm bucket: {d['trace_calls']} traces, {d['search_passes']} searches")
-        check(rows[0][1] <= 1.05 * peak_full,
-              f"S={rows[0][0]} peak {rows[0][1]} B above 1.05x the S={S} peak {peak_full} B")
-        del cfb
+        d = stats.delta(before)
+        # each length again, through its memoized pad / slice wrapper
+        again = [measure_forward(torch, cfb, (params, {"tokens": tokens[:, :n]}))[2]
+                 for n in CACHE["bucket_lens"]]
+    print(f"[cache] bucket executable (canonical_bucket_exec): compiled at S={S} from"
+          f" the cache in {bucket_s:.2f} host seconds (its first call included); at S={S}"
+          f" peak {peak_full} B, {ms_full:.2f} ms, computed_attention launches"
+          f" {launches_full}; then " + "; ".join(
+              f"S={n} padded to {S}: peak {p} B ({p / peak_full:.3f}x), first call"
+              f" {ms:.2f} ms (its meta shape pass included), again {t:.2f} ms, launches {k}"
+              for (n, p, ms, k), t in zip(rows, again))
+          + f"; over the first calls bucket_exec_hits {d['bucket_exec_hits']}, traces"
+          f" {d['trace_calls']}, search passes {d['search_passes']}")
+    check(d["bucket_exec_hits"] == len(rows), f"bucket_exec_hits {d['bucket_exec_hits']}")
+    check(d["trace_calls"] == 0 and d["search_passes"] == 0,
+          f"warm bucket: {d['trace_calls']} traces, {d['search_passes']} searches")
+    check(rows[0][1] <= 1.05 * peak_full,
+          f"S={rows[0][0]} peak {rows[0][1]} B above 1.05x the S={S} peak {peak_full} B")
+    del cfb
 
     # ---- the padded fp32 logits against the unchunked forward -----------
-    cfg32 = cfg.with_(dtype="float32")
-    model32 = M.init_params(cfg32, torch.Generator(device="cuda").manual_seed(4), device="cuda")
+    # the float32 check's model, its S 8192 "auto" plan replayed from the
+    # float32 check's plan cache (the same program: no second search)
+    model32 = cold["model32"]
     params32 = dict(model32.named_parameters())
     n = CACHE["bucket_lens"][0]
     tok = torch.tensor(np.random.default_rng(4).integers(0, cfg.vocab_size, (1, n)),
                        device="cuda")
-    cf32 = autochunk(M.logits_fn(model32), ChunkConfig(canonical_bucket_exec=True, **knobs))
+    cf32 = autochunk(M.logits_fn(model32), ChunkConfig(canonical_bucket_exec=True, **knobs),
+                     cache=cold["plans32"])
+    before = stats.snapshot()
     with torch.no_grad():
         y1 = cf32(params32, {"tokens": tok})
+        d32 = stats.delta(before)
         y0 = M.logits_fn(model32)(params32, {"tokens": tok})
     err = float((y1[..., :cfg.vocab_size] - y0[..., :cfg.vocab_size]).abs().max())
     bucket = cf32.stats()
     print(f"[cache] fp32 S={n} through the bucket executable compiled at S={S}"
-          f" ({bucket['bucket_exec_compiles']} compile, {bucket['padded_shapes']} padded"
-          f" shape): logits against the unchunked forward at S={n} max_abs_err {err:.3e}"
-          " (limit 1e-3)")
+          f" ({bucket['bucket_exec_compiles']} compile from the float32 check's plan:"
+          f" plan_cache_hits {d32['plan_cache_hits']}, search passes {d32['search_passes']};"
+          f" {bucket['padded_shapes']} padded shape): logits against the unchunked forward at"
+          f" S={n} max_abs_err {err:.3e} (limit 1e-3)")
     check(bucket["bucket_exec_compiles"] == 1 and bucket["padded_shapes"] == 1,
           f"fp32 bucket executable: {bucket}")
+    check(d32["plan_cache_hits"] == 1 and d32["search_passes"] == 0,
+          f"fp32 bucket executable searched again: {d32}")
     check(err <= 1e-3, f"padded fp32 logits differ from the unchunked forward by {err}")
     return dict(warm_launches=launches, precompile_s=pre_s, cold_compile_s=cold_s,
                 warm_compile_s=warm_s, warm_peak=peak_warm, warm_ms=ms_warm,
@@ -2004,6 +2082,7 @@ def served_fp32_logits(torch, M, ServeEngine, Request, cfg, run, seed, label, ro
     for r in reqs:
         engine.submit(r)
     engine.run()
+    engine._decode_wave = wave      # the spy holds the engine: no reference cycle
     check(all(r.done and len(r.generated) == m for r, m in zip(reqs, run["max_new"])),
           f"fp32 {label} serving: a request did not finish")
     # the wave compiled at the run's wave budget against the plain one, on
@@ -3014,6 +3093,7 @@ def recurrent_fp32_logits(torch, M, ServeEngine, Request, arch, card):
     engine._decode_wave = spy
     engine.submit(req)
     engine.run()
+    engine._decode_wave = wave      # the spy holds the engine: no reference cycle
     check(req.done and len(req.generated) == req.max_new_tokens,
           f"fp32 {arch} serving: the request did not finish")
     out = {}
@@ -3708,35 +3788,46 @@ def moe_serve_block_plans(torch, CA, CF, stats, M, cfg, model, prompts, errs, ca
     return out
 
 
-class _Widened:
-    """A model's parameters read as float32, one entry at a time: what
-    ``decode_step`` reads of a model (``params["embed"]``,
-    ``layer_params(i)``, ``params["final_norm"]``), each widened when read,
-    so a float32 wave runs beside the bf16 weights without a float32 copy
-    of the whole model."""
-
-    def __init__(self, torch, M, model):
-        self.torch, self.M, self.model = torch, M, model
-
-    def _wide(self, tree):
-        if not isinstance(tree, dict):
-            tree = self.M._index_tree(tree)
-        return self.torch.utils._pytree.tree_map(lambda t: t.float(), tree)
-
-    def __getitem__(self, key):
-        return self._wide(self.model[key])
-
-    def layer_params(self, i):
-        return self._wide(self.model.layer_params(i))
-
-
 def moe_wave_fp32(torch, M, cfg, model, cache, toks, pos):
-    """The plain decode wave in float32 from a bf16 model and cache: a
-    float32 copy of the cache, each layer's weights widened as it runs."""
+    """The plain decode wave of a MoE model (MLA or GQA attention) in
+    float32 from its bf16 weights and cache: a float32 copy of the cache,
+    each layer's weights widened as it runs.  Of a MoE layer's routed
+    experts only those its rows pick are widened (deepseek-v3's 256 are 45
+    GB a layer in float32): a wave routes one token a row, each row a group
+    of its own, so its top-k distinct experts fit the capacity of 8 and the
+    experts no row picks add nothing."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+
+    c32, k, window = cfg.with_(dtype="float32"), cfg.first_k_dense, cfg.sliding_window
+
+    def wide(tree):
+        tree = tree if isinstance(tree, dict) else M._index_tree(tree)
+        return torch.utils._pytree.tree_map(lambda t: t.float(), tree)
+
     cache32 = torch.utils._pytree.tree_map(lambda t: t.to(torch.float32, copy=True), cache)
-    logits, _ = M.decode_step(cfg.with_(dtype="float32"), _Widened(torch, M, model), cache32,
-                              toks[:, None], pos)
-    return logits[:, 0]
+    with torch.no_grad():
+        h = L.embed(c32, wide(model["embed"]), toks[:, None])
+        for i in range(cfg.n_layers):
+            layer, c = model.layer_params(i), M._layer_cache(cache32, i)
+            if i < k:
+                h = M.dense_block_decode(c32, wide(layer), h, c, pos, window=window)
+                continue
+            p = {name: wide(layer[name]) for name in ("ln1", "ln2", "attn")}
+            x = M.attn_block_decode(c32, p, h, c, pos, window=window)
+            hn = L.apply_norm(c32, x, p["ln2"])[:, 0]                     # (B, d)
+            m = layer["moe"]
+            idx, gates, _ = MOE.route(c32, hn, m["router"].float())        # (B, k)
+            up = torch.einsum("bd,bkdf->bkf", hn, m["w_up"][idx].float())
+            u, g = torch.chunk(up, 2, dim=-1)
+            out = torch.einsum("bkf,bkfd->bkd", u * F.silu(g), m["w_down"][idx].float())
+            ff = (out * gates[..., None]).sum(dim=1)
+            if cfg.n_shared_experts:
+                ff = ff + L.mlp(c32, wide(m["shared"]), hn, act="swiglu")
+            h = x + ff[:, None]
+        h = L.apply_norm(c32, h, wide(model["final_norm"]))
+        return L.unembed(c32, wide(model["embed"]), h)[:, 0]
 
 
 def run_moe_serve(torch, CA, CF, stats, M, flush, card):
@@ -4058,8 +4149,8 @@ def mla_forward_fp32(torch, M, cfg, model, batch, window):
         return L.unembed(c32, wide(model["embed"]), h)
 
 
-def mla_block_plans(torch, M, cfg, model, cfs, h0, card):
-    """Each block plan of the first per-block forward, traced again on its
+def mla_block_plans(torch, M, cfg, model, cfs, h0, card, label="[block] mla"):
+    """Each block plan compiled at ``h0``'s length, traced again on its
     first layer's own input (a replay: no search): stages, every loop with
     its chunks, the predicted unchunked and chunked peaks, the values live
     at the chunked peak, and the first layer's measured chunked peak
@@ -4076,7 +4167,7 @@ def mla_block_plans(torch, M, cfg, model, cfs, h0, card):
             with torch.no_grad():
                 for i in range(k):
                     x = cfs[f"densepre{W}"](M._index_tree(model.layer_params(i)), x)
-        r = cf.autochunk_result
+        r = cf._compiled[cf._shape_key((p, x))].result
         before = stats.snapshot()
         planned = cf.trace(p, x).search()
         check(stats.delta(before)["search_passes"] == 0, f"{tag}: the replay searched")
@@ -4085,19 +4176,19 @@ def mla_block_plans(torch, M, cfg, model, cfs, h0, card):
         with torch.no_grad():
             cf(p, x)
             _, peak, ms = measure_forward(torch, cf, (p, x))
-        print(f"[block] mla {tag}: one compile (host seconds trace {r.trace_s:.2f}, search"
+        print(f"{label} {tag}: one compile (host seconds trace {r.trace_s:.2f}, search"
               f" {r.search_s:.2f}, compile {r.elapsed_s - r.trace_s - r.search_s:.2f}),"
               f" {len(r.plan)} stages; predicted block peak unchunked {r.baseline_peak} B (not"
               f" run: beside the weights it does not fit the card) -> chunked {r.final_peak} B"
               f" ({1 - r.final_peak / r.baseline_peak:.1%} less; budget {r.budget_bytes} B,"
               f" {'within' if r.final_peak <= r.budget_bytes else 'above'} it)")
         for kind, c, n in loops:
-            print(f"[block] mla {tag} loop {kind}: {n} chunks of {c}"
+            print(f"{label} {tag} loop {kind}: {n} chunks of {c}"
                   + (" (the MLA scores: q_nope k_nope^T + q_rope k_rope^T, generic)"
                      if kind == "scores" else ""))
-        print(f"[block] mla {tag} values live at the predicted peak: "
+        print(f"{label} {tag} values live at the predicted peak: "
               + ", ".join(f"{op} {tuple(shape)} {b} B" for b, op, shape in live))
-        print(f"[block] mla {tag} layer {layer} activation peak: chunked {peak} B (predicted"
+        print(f"{label} {tag} layer {layer} activation peak: chunked {peak} B (predicted"
               f" {r.final_peak} B, {peak / r.final_peak:.4f}x); {ms:.2f} ms; {card}")
         check(abs(peak - r.final_peak) <= 0.05 * r.final_peak,
               f"mla {tag} chunked peak {peak} B is not within 5% of the predicted"
@@ -4145,12 +4236,16 @@ def run_mla_forward(torch, F, CA, CF, stats, M, flush, card):
     # each MoE layer's routed w_up is drawn as one 30 GB f32 tensor; in
     # fixed segments the first layer's freed draw is split by the smaller
     # weights after it and the second's finds no room, so this phase
-    # allocates in expandable segments.  The earlier phases' engines hold
-    # reference cycles: collect them first, or their tensors stay on the card
+    # allocates in expandable segments.  A collection first frees what any
+    # reference cycle of an earlier phase still holds on the card (the
+    # engines hold none); the bytes it frees are printed
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
     gc.collect()
     torch.cuda.empty_cache()
     set_allocator(torch, "expandable_segments:True")
-    print(f"[mla] on the card before the weights: {torch.cuda.memory_allocated()} B allocated")
+    print(f"[mla] on the card before the weights: {torch.cuda.memory_allocated()} B allocated;"
+          f" the garbage collection freed {held - torch.cuda.memory_allocated()} B")
     cfg = get_config(run["arch"]).with_(scan_layers=False, n_layers=run["n_layers"])
     cfg_ac = cfg.with_(autochunk_budget=run["budget"])
     W, S, n_layers, k = cfg.sliding_window, run["seq_len"], cfg.n_layers, cfg.first_k_dense
@@ -4307,6 +4402,34 @@ def run_mla_forward(torch, F, CA, CF, stats, M, flush, card):
           f" {ms_u:.2f} ms, aux {float(aux_u):.6f}; per block peak {peak_c} B, {ms_c:.2f} ms,"
           f" aux {float(aux_c):.6f}; mtp_logits {tuple(mtp.shape)}, finite")
     del mtp, h_emb
+    # the model, the S 2048 logits and the plans stay for [mla-serve] (its
+    # S 2048 prefill replays these plans) and then for finish_mla_forward
+    state = dict(cfg=cfg, cfg_ac=cfg_ac, model=model, batch=batch, y16u=y16u, y16c=y16c,
+                 seconds=time.perf_counter() - t_phase)
+    out = dict(weight_bytes=wb, build_s=build_s, seconds_first=first_s, plans=plans,
+               capacity=cap, dropped_first_moe_layer=dropped, experts_over_capacity=over,
+               peak=peak1, ms=ms1, chunked_ffn_launches=n_ffn, attention_launches=n_attn,
+               masked_launches=n_masked, aux=float(aux1), ffn_timed=ffn_timed, errs=errs,
+               short=dict(peak_unbudgeted=peak_u, ms_unbudgeted=ms_u, peak_per_block=peak_c,
+                          ms_per_block=ms_c))
+    print(f"[mla] bf16 part done in {state['seconds']:.1f}s")
+    return out, state
+
+
+def finish_mla_forward(torch, M, card, out, state):
+    """The rest of ``[mla]`` after ``[mla-serve]`` served its model: the
+    S 2048 bf16 logits against a float32 forward of the same weights, which
+    consumes the bf16 model (per block no further than 1.5x unbudgeted),
+    then float32 at 2 layers (one dense, one MoE): per block within 1e-3 of
+    unbudgeted in logits, 1e-6 in aux.  Returns the 2-layer float32 model
+    and its config for ``[mla-serve]``'s float32 serving."""
+    import numpy as np
+
+    run = MLA_RUN
+    t_phase = time.perf_counter()
+    cfg, model, batch = state.pop("cfg"), state.pop("model"), state.pop("batch")
+    y16u, y16c = state.pop("y16u"), state.pop("y16c")
+    W, V, S2, n_layers = cfg.sliding_window, cfg.vocab_size, run["short_len"], cfg.n_layers
     M._AC_CACHE.clear()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4339,20 +4462,346 @@ def run_mla_forward(torch, F, CA, CF, stats, M, flush, card):
           f" {stages}; per-block vs unbudgeted logits max_abs_err {err32:.3e} (limit 1e-3), aux"
           f" {float(a0):.8f} vs {float(a1):.8f} (|delta| {aerr:.3e}; limit 1e-6)")
     check(err32 <= 1e-3 and aerr <= 1e-6, f"fp32 mla per-block logits {err32}, aux {aerr}")
-    del y0, y1, model, batch
+    del y0, y1, batch
     M._AC_CACHE.clear()
     torch.cuda.empty_cache()
-    set_allocator(torch, "expandable_segments:False")
-    phase_s = time.perf_counter() - t_phase
-    print(f"[mla] phase done in {phase_s:.1f}s")
-    return dict(weight_bytes=wb, build_s=build_s, seconds_first=first_s, plans=plans,
-                capacity=cap, dropped_first_moe_layer=dropped, experts_over_capacity=over,
-                peak=peak1, ms=ms1, chunked_ffn_launches=n_ffn, attention_launches=n_attn,
-                masked_launches=n_masked, aux=float(aux1), ffn_timed=ffn_timed, errs=errs,
-                short=dict(peak_unbudgeted=peak_u, ms_unbudgeted=ms_u, peak_per_block=peak_c,
-                           ms_per_block=ms_c, bf16_vs_fp32_unchunked=err_u,
-                           bf16_vs_fp32_per_block=err_c, fp32_widen_s=fp32_s),
-                fp32_logits_err=err32, fp32_aux_err=aerr, fp32_stages=stages, seconds=phase_s)
+    phase_s = state["seconds"] + time.perf_counter() - t_phase
+    print(f"[mla] phase done in {phase_s:.1f}s (the bf16 part and the float32 checks)")
+    out["short"].update(bf16_vs_fp32_unchunked=err_u, bf16_vs_fp32_per_block=err_c,
+                        fp32_widen_s=fp32_s)
+    out.update(fp32_logits_err=err32, fp32_aux_err=aerr, fp32_stages=stages, seconds=phase_s)
+    return model, cfg32
+
+
+# ---------------------------------------------------------------------------
+# MLA serving: deepseek-v3-671b's latent cache through the fixed-slot engine
+# ---------------------------------------------------------------------------
+
+MLA_SERVE = dict(seed=18, max_batch=2, max_len=8320,
+                 # the first decodes across position 8192 (the ring's first
+                 # overwrite at wave 64); the second has [mla]'s S 2048 length,
+                 # so its prefill replays those plans; the third is admitted
+                 # into the slot the second frees
+                 prompts=(8128, 2048, 1000), max_new=(96, 32, 32),
+                 wave_budget=0.5, second_max_len=9000, wave_reps=10,
+                 # float32 at [mla]'s 2 layers, with a capacity factor at which
+                 # an expert's capacity is at least the length (32 at top-8
+                 # of 256), so no expert overflows in the forward
+                 fp32_prompt=256, fp32_new=32, fp32_capacity_factor=32.0, fp32_seed=19,
+                 cli=["--arch", "deepseek-v3-671b"] + SLOT_SSM["cli"])
+
+
+def mla_wave_bytes(model, cache_bytes):
+    """Bytes one decode wave must read: every block's weights (each MoE
+    block with all its routed experts: ``moe_ffn`` runs them on their (B,
+    E, 8, d) buffer), the final norm and the head, and both rows' rings;
+    the embedding table is read a row at a time and the MTP head not at
+    all."""
+    cfg = model.cfg
+    blocks = sum(param_bytes(model.layer_params(i)) for i in range(cfg.n_layers))
+    return (blocks + param_bytes(model["final_norm"]) + param_bytes(model["embed"]["lm_head"])
+            + cache_bytes)
+
+
+def run_mla_serve(torch, CA, CF, stats, M, flush, card, state):
+    """deepseek-v3-671b served through ``ServeEngine`` on the model ``[mla]``
+    built (bf16, full width, 3 dense and 2 MoE layers, the list form): 2
+    slots of latent rings (``ckv`` and ``kr``, 1,152 B a token a layer),
+    three requests (the first across the ring's first overwrite, the
+    second at ``[mla]``'s S 2048, whose prefill replays its plans, the
+    third in the slot the second frees), each prefill per block at
+    ``[mla]``'s budget 0.01, the launch counts zeroed just before serving
+    and read just after: ``chunked_ffn`` for every dense SwiGLU chunk of
+    the plans, no attention kernel.  The block plans at each prompt length
+    with layer-0 peaks within 5%, ``chunked_ffn`` on the 8128-token
+    prefill's layer-0 calls against its plain version, the plain versions
+    swapped in, the compiled wave (budget 0.5) and the plain one against a
+    float32 wave (the compiled within 1.5x the plain's distance), both
+    timed beside the wave's bound by bytes, and the compiled one
+    reconfigured inside its bucket."""
+    from repro_torch.serving import Request, ServeEngine
+
+    run = MLA_SERVE
+    t_phase = time.perf_counter()
+    cfg_ac, model = state["cfg_ac"], state["model"]
+    cfg = cfg_ac.with_(autochunk_budget=None)
+    L, B, k, W = cfg.n_layers, run["max_batch"], cfg.first_k_dense, cfg.sliding_window
+    dtag, mtag = f"densepre{W}", f"moe{W}"
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg_ac, model, max_batch=B, max_len=run["max_len"], device="cuda")
+    build_s = time.perf_counter() - t0
+    width = M.cache_width(cfg, engine.exec_len)
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for t in torch.utils._pytree.tree_leaves(engine.cache))
+    token_bytes = (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
+    kv_token_bytes = cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim) * 2
+    want_kv, decompressed = B * width * L * token_bytes, B * width * L * kv_token_bytes
+    print(f"[mla-serve] deepseek-v3-671b bf16, {L} layers ({k} dense, {L - k} MoE), the model"
+          f" [mla] built ({param_bytes(model)} B; not built again): engine built in"
+          f" {build_s:.2f}s: {B} slots, max_len {run['max_len']}, exec_len {engine.exec_len},"
+          f" ring width {width}, latent cache {kv_bytes} B ({B} x {width} x {L} layers x"
+          f" ({cfg.kv_lora_rank} + {cfg.qk_rope_dim}) x 2 B = {want_kv} B, {token_bytes} B a"
+          f" token a layer); decompressed K/V of the same shape would take {kv_token_bytes} B a"
+          f" token a layer, {decompressed} B ({decompressed / kv_bytes:.1f}x)")
+    check(engine.exec_len == 16384 and width == W == 8192 and kv_bytes == want_kv
+          == 94_371_840 and decompressed == 6_710_886_400,
+          f"mla slot cache: exec_len {engine.exec_len}, width {width}, {kv_bytes} B")
+    check(set(engine.cache["layers"][0]) == {"ckv", "kr"}, "the cache holds no latent ring")
+
+    reqs = make_requests(Request, cfg.vocab_size, run["seed"], run["prompts"], run["max_new"])
+    # search passes per prefill, read around each prefill the engine runs
+    searches, prefill = {}, M.prefill
+
+    def counted_prefill(*args, **kw):
+        before = stats.snapshot()
+        out = prefill(*args, **kw)
+        searches[args[2]["tokens"].shape[1]] = stats.delta(before)["search_passes"]
+        return out
+
+    M.prefill = counted_prefill
+    try:
+        torch.cuda.synchronize()
+        CA.computed_attention.launches = CA.masked_attention.launches = 0
+        CF.chunked_ffn.launches = 0
+        t0 = time.perf_counter()
+        for r in reqs:
+            engine.submit(r)
+        engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"computed_attention": CA.computed_attention.launches,
+                    "masked_attention": CA.masked_attention.launches,
+                    "chunked_ffn": CF.chunked_ffn.launches}
+    finally:
+        M.prefill = prefill
+    toks = sum(len(r.generated) for r in reqs)
+    max_new = run["max_new"]
+    check(all(r.done and len(r.generated) == m for r, m in zip(reqs, max_new)),
+          "mla serving: a request did not finish with its new tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          "mla serving: a token outside the vocabulary")
+    waves = engine.n_decode_steps
+    check(waves == max(max_new[0] - 1, max_new[1] - 1 + max_new[2] - 1),
+          f"mla serving: {waves} decode waves")
+    ttft = {r.rid: r.ttft_s for r in reqs}
+    print(f"[mla-serve] served {len(reqs)} requests (prompts {run['prompts']}, new {max_new}) on"
+          f" {B} slots, prefill per block at budget {cfg_ac.autochunk_budget}: {toks} tokens in"
+          f" {wall:.3f}s = {toks / wall:.1f} tok/s, {waves} decode waves; TTFT"
+          f" {', '.join(f'rid {k_} {v:.3f}s' for k_, v in ttft.items())}; search passes per"
+          f" prefill {searches}; {card}")
+    check(searches[MLA_RUN["short_len"]] == 0,
+          f"the S {MLA_RUN['short_len']} prefill searched: {searches}")
+    print(f"[mla-serve] the S {MLA_RUN['short_len']} prefill replayed [mla]'s plans: 0 search"
+          " passes")
+
+    # the block plans at each prompt length, on layer 0's (and the first MoE
+    # layer's) own input; chunked_ffn on the longest prefill's layer-0 calls
+    cfs = {key[2]: cf for key, cf in M._AC_CACHE.items()}
+    check(set(cfs) == {dtag, mtag}, f"prefill plans {sorted(cfs)}")
+    plans, errs = {}, {}
+    p0 = M._index_tree(model.layer_params(0))
+    for S in dict.fromkeys(run["prompts"]):
+        prompt = next(r.prompt for r in reqs if len(r.prompt) == S)
+        h0 = M.embed_inputs(cfg, model, {"tokens": torch.tensor([prompt], device="cuda")})[0]
+        plans[S], hk = mla_block_plans(torch, M, cfg, model, cfs, h0, card,
+                                       label=f"[mla-serve] block plan S={S}")
+        if S == run["prompts"][0]:
+            calls = capture_ffn_calls(torch, CF, lambda: cfs[dtag](p0, h0))
+            check(len(calls) == plans[S][dtag]["swiglu_chunks"] > 0,
+                  f"{len(calls)} chunked_ffn calls in layer 0, plan {plans[S][dtag]['loops']}")
+            hold_calls_both_dtypes(torch, "chunked_ffn", f"mla-serve prefill S={S} layer 0",
+                                   [(c, {}) for c in calls], CF.chunked_ffn,
+                                   CF.chunked_ffn_plain, errs)
+            del calls
+        del h0, hk
+        torch.cuda.empty_cache()
+    want_ffn = sum(k * plans[len(r.prompt)][dtag]["swiglu_chunks"]
+                   + (L - k) * plans[len(r.prompt)][mtag]["swiglu_chunks"] for r in reqs)
+    print(f"[mla-serve] launches while serving: chunked_ffn {launches['chunked_ffn']} (= sum"
+          f" over the 3 prefills of {k} dense x SwiGLU chunks + {L - k} MoE x SwiGLU chunks ="
+          f" {want_ffn}; the plain wave dispatches nothing), computed_attention"
+          f" {launches['computed_attention']}, masked_attention {launches['masked_attention']}"
+          " (MLA's scores: generic loops)")
+    check(launches["chunked_ffn"] == want_ffn > 0, f"mla-serve chunked_ffn launches"
+          f" {launches['chunked_ffn']}, want {want_ffn}")
+    check(launches["computed_attention"] == launches["masked_attention"] == 0,
+          f"attention kernels launched on MLA: {launches}")
+
+    # the same requests with the plain versions swapped in (information)
+    plain_reqs = [Request(rid=100 + r.rid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+                  for r in reqs]
+    restore = swap_plain(CA, CF)
+    try:
+        for r in plain_reqs:
+            engine.submit(r)
+        engine.run()
+    finally:
+        restore()
+    same = sum(a == b for r, rp in zip(reqs, plain_reqs) for a, b in zip(r.generated, rp.generated))
+    print(f"[mla-serve] the same requests with the plain versions swapped in: {same} of {toks}"
+          f" tokens equal to the kernels'")
+
+    # the compiled wave (budget 0.5) against the plain one on the same cache,
+    # next tokens and positions: slot 0 ends holding rid 0, slot 1 rid 2
+    before = stats.snapshot()
+    t0 = time.perf_counter()
+    e2 = ServeEngine(cfg_ac, model, max_batch=B, max_len=run["max_len"],
+                     autochunk_budget=run["wave_budget"], device="cuda")
+    wave_build = time.perf_counter() - t0
+    dw = stats.delta(before)
+    res = e2.autochunk_result
+    wave_plan = dict(stages=len(res.plan), baseline_peak=res.baseline_peak,
+                     final_peak=res.final_peak, budget_bytes=res.budget_bytes)
+    del res
+    for full, mine in zip(torch.utils._pytree.tree_leaves(e2.cache),
+                          torch.utils._pytree.tree_leaves(engine.cache)):
+        full.copy_(mine)
+    last = (plain_reqs[0], plain_reqs[2])
+    toks_w = torch.tensor([r.generated[-1] for r in last], device="cuda")
+    pos_w = torch.tensor([len(r.prompt) + len(r.generated) - 1 for r in last], device="cuda")
+    print(f"[mla-serve] compiled wave: built in {wave_build:.2f}s ({dw['trace_calls']} trace,"
+          f" {dw['search_passes']} search passes), {wave_plan['stages']} stages, predicted peak"
+          f" {wave_plan['baseline_peak']} -> {wave_plan['final_peak']} B (budget"
+          f" {wave_plan['budget_bytes']} B); dispatch hits {dw['kernel_dispatch_hits']}"
+          f" (computed mask {dw['kernel_dispatch_computed_mask']}), misses"
+          f" {dw['kernel_dispatch_misses']}")
+    check(dw["kernel_dispatch_computed_mask"] == 0, "an attention kernel matched MLA's wave")
+    # both bf16 waves against the float32 wave from the same cache: the
+    # compiled one no further from it than 1.5x the plain one
+    with torch.no_grad():
+        lg_ref = moe_wave_fp32(torch, M, cfg, model, e2.cache, toks_w, pos_w)[:, :cfg.vocab_size]
+        lg_plain = engine._decode_wave(engine.cache, toks_w, pos_w)[:, :cfg.vocab_size]
+        lg_comp = e2._decode_wave(e2.cache, toks_w, pos_w)[:, :cfg.vocab_size]
+    atol, rtol = TOL["bfloat16"]
+    diff = (lg_comp.float() - lg_plain.float()).abs()
+    wave_err = float(diff.max())
+    wave_share = float((diff / (atol + rtol * lg_plain.float().abs())).max())
+    d_comp = float((lg_comp.float() - lg_ref).abs().max())
+    d_plain = float((lg_plain.float() - lg_ref).abs().max())
+    print(f"[mla-serve] compiled wave against the plain one, bf16 logits at positions"
+          f" {pos_w.tolist()}: max_abs_err {wave_err:.3e} (max|plain|"
+          f" {float(lg_plain.float().abs().max()):.3f}), {wave_share:.3f} of one kernel's bf16"
+          f" limit {atol:g} + {rtol:g}|want|; from the float32 wave: compiled {d_comp:.3e},"
+          f" plain {d_plain:.3e} (limit 1.5x the plain's); argmax equal to the float32 wave's"
+          f" in {int((lg_comp.argmax(-1) == lg_ref.argmax(-1)).sum())} (compiled) and"
+          f" {int((lg_plain.argmax(-1) == lg_ref.argmax(-1)).sum())} (plain) of {B} rows")
+    check(bool(torch.isfinite(lg_comp).all()) and d_comp <= 1.5 * d_plain,
+          f"compiled mla wave {d_comp} from float32, plain {d_plain}")
+    del lg_ref, lg_plain, lg_comp, diff
+    torch.cuda.empty_cache()
+    wave_bytes = mla_wave_bytes(model, kv_bytes)
+    with torch.no_grad():
+        ms_plain = time_ms(torch, lambda: engine._decode_wave(engine.cache, toks_w, pos_w),
+                           flush, reps=run["wave_reps"])
+        ms_comp = time_ms(torch, lambda: e2._decode_wave(e2.cache, toks_w, pos_w), flush,
+                          reps=run["wave_reps"])
+    wave_bound = wave_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[mla-serve] decode wave {ms_comp:.3f} ms compiled, {ms_plain:.3f} ms plain"
+          f" (CUDA-event medians of {run['wave_reps']}, {B} rows of {width} latent slots, {L}"
+          f" layers); bound {wave_bound:.3f} ms (bytes: {wave_bytes} B of weights, every routed"
+          f" expert included, and rings); {card}")
+    del engine
+    torch.cuda.empty_cache()
+    before = stats.snapshot()
+    compiles = e2.exec_stats["wave_compiles"]
+    e2.reconfigure(max_len=run["second_max_len"])
+    dr = stats.delta(before)
+    print(f"[mla-serve] reconfigure(max_len={run['second_max_len']}): exec_len {e2.exec_len},"
+          f" bucket_exec_hits {dr['bucket_exec_hits']}, trace_calls {dr['trace_calls']},"
+          f" search_passes {dr['search_passes']}, wave_compiles"
+          f" {e2.exec_stats['wave_compiles']} (was {compiles})")
+    check(e2.exec_len == 16384 and dr["bucket_exec_hits"] == 1 and dr["trace_calls"] == 0
+          and dr["search_passes"] == 0 and e2.exec_stats["wave_compiles"] == compiles,
+          f"mla reconfigure inside the bucket: {dr}")
+    del e2, model
+    M._AC_CACHE.clear()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[mla-serve] bf16 part done in {seconds:.1f}s")
+    return dict(build_s=build_s, exec_len=16384, ring_width=width, cache_bytes=kv_bytes,
+                decompressed_kv_bytes=decompressed, wall_s=wall, tokens=toks,
+                tok_s=toks / wall, decode_waves=waves, ttft_s=ttft, searches=searches,
+                launches=launches, plans={str(s_): v for s_, v in plans.items()},
+                plain_swapped_equal=same, wave_err=wave_err, wave_share_of_tol=wave_share,
+                wave_err_from_fp32=d_comp, plain_wave_err_from_fp32=d_plain, wave_ms=ms_comp,
+                plain_wave_ms=ms_plain, wave_bound_ms=wave_bound, wave_bytes=wave_bytes,
+                wave_plan=wave_plan, wave_build_s=wave_build, errs=errs, seconds=seconds)
+
+
+def mla_serve_fp32(torch, M, card, model32, cfg32):
+    """``[mla]``'s 2-layer float32 model (one dense, one MoE layer, full
+    width) served through ``ServeEngine``: one prompt of 256 tokens and 32
+    new, at a capacity factor at which no expert can overflow in the
+    forward; the served logits at the first and the last wave within 1e-3
+    of ``forward(..., window=8192)`` over the sequence so far.  The wrap at
+    float32 is held against the JAX package on the CPU
+    (``tests/test_torch_mla_decode.py``): an unbudgeted float32 forward past
+    8192 tokens does not fit the card."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.serving import Request, ServeEngine
+
+    run = MLA_SERVE
+    t_phase = time.perf_counter()
+    cfg = cfg32.with_(capacity_factor=run["fp32_capacity_factor"])
+    n, m, W = run["fp32_prompt"], run["fp32_new"], cfg.sliding_window
+    check(MOE.capacity(cfg, n + m) >= n + m, "fp32 mla: an expert's capacity below the length")
+    engine = ServeEngine(cfg, model32, max_batch=1, max_len=run["max_len"], device="cuda")
+    (req,) = make_requests(Request, cfg.vocab_size, run["fp32_seed"], (n,), (m,))
+    kept, count, wave = {}, [0], engine._decode_wave
+    at = {0: "first", m - 2: "last"}
+
+    def spy(cache, toks, pos):
+        logits = wave(cache, toks, pos)
+        if count[0] in at:
+            kept[at[count[0]]] = (int(pos[0]), logits[0].float().clone())
+        count[0] += 1
+        return logits
+
+    engine._decode_wave = spy
+    engine.submit(req)
+    engine.run()
+    engine._decode_wave = wave
+    check(req.done and len(req.generated) == m, "fp32 mla serving: the request did not finish")
+    seq = req.prompt + req.generated
+    errs = {}
+    with torch.no_grad():
+        for name, (pos, got) in kept.items():
+            toks = torch.tensor([seq[:pos + 1]], device="cuda")
+            want = M.forward(cfg, model32, {"tokens": toks}, window=W)[0][0, -1]
+            errs[name] = float((got[:cfg.vocab_size] - want[:cfg.vocab_size]).abs().max())
+            del want
+    print(f"[mla-serve] fp32 L={cfg.n_layers} ({cfg.first_k_dense} dense, 1 MoE) full width,"
+          f" capacity factor {run['fp32_capacity_factor']:g} (each expert's capacity at least"
+          f" the length: no expert overflows), prompt {n}, {m} new: decode logits against"
+          f" forward(window={W}) over the sequence so far: "
+          + ", ".join(f"{k_} wave (position {kept[k_][0]}) {v:.3e}" for k_, v in errs.items())
+          + f" (limit 1e-3); {card}")
+    check(max(errs.values()) <= 1e-3, f"fp32 mla served logits differ from the forward: {errs}")
+    positions = {f"{k_}_position": p for k_, (p, _) in kept.items()}
+    del engine, kept
+    torch.cuda.empty_cache()
+    return dict(positions, **{f"{k_}_err": v for k_, v in errs.items()},
+                seconds=time.perf_counter() - t_phase)
+
+
+def mla_serve_cli(torch):
+    """``serve.main --arch deepseek-v3-671b --local`` on the card: the
+    fixed-slot engine serves the reduced model; its ``[serve]`` lines."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        serve.main(MLA_SERVE["cli"])
+    lines = [ln for ln in text.getvalue().splitlines() if ln.startswith("[serve]")]
+    for ln in lines:
+        print(f"[mla-serve] CLI deepseek-v3-671b --local: {ln}")
+    check(any(re.match(r"\[serve\] 3 requests, 24 tokens ", ln) for ln in lines),
+          "the serving CLI did not serve deepseek-v3-671b")
+    torch.cuda.empty_cache()
+    return lines
 
 
 def main() -> int:
@@ -4380,12 +4829,8 @@ def main() -> int:
     from repro_torch.serving import PagedServeEngine, Request
 
     # ---- 1. device --------------------------------------------------------
-    t_start = time.perf_counter()
-
-    def lap(name):
-        print(f"[phase] {name} done {time.perf_counter() - t_start:.1f}s into the script",
-              flush=True)
-
+    global _T_START
+    _T_START = time.perf_counter()
     card = card_line()
     print(f"[device] {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4405,6 +4850,20 @@ def main() -> int:
         print(f"[build] {name}.cu with nvcc in {seconds:.2f}s")
         ptxas_report(name, log)
     lap("build")
+    # host work that needs no card runs beside the phases before it: the
+    # precompile CLI of the [cache] phase (a subprocess) and the searches
+    # of the float32 compiled forwards (two child processes on meta, at low
+    # priority); [compile] and [cache] wait for their results
+    plans_dir = tempfile.TemporaryDirectory(prefix="plans-")
+    fp32_dir = tempfile.TemporaryDirectory(prefix="plans-fp32-")
+    background = concurrent.futures.ThreadPoolExecutor(1)
+    precompiled = background.submit(precompile_plans, plans_dir.name)
+    planners = concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    cfg_fp32 = get_config("gpt-paper").with_(scan_layers=False, dtype="float32")
+    fp32_planned = {mode: planners.submit(plan_forward_on_meta, cfg_fp32, mode,
+                                          COMPILE["seq_len"], fp32_dir.name)
+                    for mode in ("auto", "bool")}
     # which route each redesigned kernel took: tensor-core instructions in
     # its SASS (the bf16 attention and FFN kernels must have HGMMA, the bf16
     # SSD kernel HMMA or HGMMA, the f32 ones, the mask's tile pre-pass and
@@ -4530,6 +4989,7 @@ def main() -> int:
     phi3_serve["fp32_logits_err"] = check_served_logits(
         torch, M, pcfg.with_(dtype="float32", n_layers=4), 4,
         rng.integers(0, pcfg.vocab_size, 600).tolist(), label=f"phi3-mini-3.8b L=4 hd={pcfg.hd} ")
+    lap("served float32 logits")
 
     # ---- 6. estimator on the card (informational) ------------------------
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -4549,6 +5009,7 @@ def main() -> int:
           f" {plan.peak_bytes} B, measured max_memory_allocated delta {measured} B"
           f" (ratio {measured / plan.peak_bytes:.3f})")
     del block, x, kv, out
+    lap("estimator")
 
     # ---- 7. times at the serving shapes ----------------------------------
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
@@ -4556,6 +5017,7 @@ def main() -> int:
                                              ("gpt_decode", "gpt_serve_decode", "gpt_mixed",
                                               "phi3_serve_decode", "phi3_mixed")},
                               cases, flush, card)
+    lap("paged times")
 
     # ---- 8. the compiler path: autochunk on gpt-paper at full width ------
     # compile + drive (counts zeroed just before, read just after), for the
@@ -4565,17 +5027,24 @@ def main() -> int:
 
     cfg_c = cfg.with_(scan_layers=False)                  # 12 layers, bf16
     fwd = {}
-    fp32_err = {}
     cold = {}
     for mode in ("auto", "bool"):
         fwd[mode] = run_compiled_forward(torch, CA, stats, M, cfg_c, card, mask_mode=mode,
                                          keep=cold if mode == "auto" else None)
-        fp32_err[mode] = check_forward_fp32(torch, M, cfg_c, mask_mode=mode)
         torch.cuda.empty_cache()
+        lap(f"compiled forward {mode}")
+    fp32_err = check_forward_fp32(torch, M, cfg_c, cold, fp32_planned, fp32_dir.name)
+    planners.shutdown()
+    torch.cuda.empty_cache()
+    lap("float32 compiled forwards")
 
     # ---- 8b. the plan cache: precompiled gpt-paper replayed from disk ----
-    cache_run = run_cache_phase(torch, CA, stats, M, cfg_c, cold, card)
+    cache_run = run_cache_phase(torch, CA, stats, M, cfg_c, cold, card, precompiled,
+                                plans_dir.name)
+    background.shutdown()
+    plans_dir.cleanup()
     del cold
+    fp32_dir.cleanup()
     torch.cuda.empty_cache()
     lap("compile, cache")
 
@@ -4738,18 +5207,48 @@ def main() -> int:
         else:
             attn_err[(kname, dt_name)] = max(attn_err.get((kname, dt_name), 0.0), err)
     torch.cuda.empty_cache()
+    # its engines and model are deleted: what stays allocated before any
+    # garbage collection (no engine holds a reference cycle)
+    moe_serve["allocated_after"] = torch.cuda.memory_allocated()
+    print(f"[moe-serve] on the card after its engines and model are deleted, before any"
+          f" garbage collection: {moe_serve['allocated_after']} B allocated")
     lap("moe-serve")
 
     # ---- 17e. deepseek-v3-671b's MLA forward per block (5 layers) --------
     # (the [moe-serve] weights freed first; counts zeroed just before the
     # per-block forward, read just after); the plans, chunked_ffn on layer
-    # 0's and the shared expert's calls, S 2048 against float32, the MTP
-    # head, fp32 at 2 layers
-    mla = run_mla_forward(torch, F, CA, CF, stats, M, flush, card)
+    # 0's and the shared expert's calls, the S 2048 forwards and the MTP
+    # head; the model stays for [mla-serve]
+    mla, mla_state = run_mla_forward(torch, F, CA, CF, stats, M, flush, card)
     for (kname, dt_name), err in mla.pop("errs").items():
         ffn_err[dt_name] = max(ffn_err.get(dt_name, 0.0), err)
-    torch.cuda.empty_cache()
-    lap("mla")
+    lap("mla, bf16")
+
+    # ---- 17f. deepseek-v3-671b served through the fixed-slot engine ------
+    # on [mla]'s model (counts zeroed just before serving, read just after):
+    # the latent cache's bytes, the block plans and chunked_ffn on the
+    # longest prefill's layer-0 calls, the plain versions swapped in, the
+    # compiled wave against the plain one and float32, its warm reconfigure
+    t_mla_serve = time.perf_counter()
+    mla_serve = run_mla_serve(torch, CA, CF, stats, M, flush, card, mla_state)
+    for (kname, dt_name), err in mla_serve.pop("errs").items():
+        ffn_err[dt_name] = max(ffn_err.get(dt_name, 0.0), err)
+    lap("mla-serve, bf16")
+    t_mla_serve = time.perf_counter() - t_mla_serve
+
+    # ---- 17g. [mla]'s float32 checks (they consume the bf16 model), then --
+    # the 2-layer float32 model served and the serving CLI
+    model32, cfg32 = finish_mla_forward(torch, M, card, mla, mla_state)
+    lap("mla, float32")
+    t0 = time.perf_counter()
+    mla_serve["fp32"] = mla_serve_fp32(torch, M, card, model32, cfg32)
+    del model32
+    mla_serve["cli"] = mla_serve_cli(torch)
+    set_allocator(torch, "expandable_segments:False")
+    mla_serve["seconds"] = t_mla_serve + time.perf_counter() - t0
+    print(f"[mla-serve] phase done in {mla_serve['seconds']:.1f}s (its bf16 part, float32"
+          " serving and the CLI)")
+    lap("mla-serve, float32 and CLI")
 
     # ---- 18. kernels lines and the result --------------------------------
     launch_counts = {"paged_attention": launches,
@@ -4773,11 +5272,13 @@ def main() -> int:
     mla_launches = {"computed_attention": mla["attention_launches"],
                     "masked_attention": mla["masked_launches"],
                     "chunked_ffn": mla["chunked_ffn_launches"]}
+    mla_serve_launches = mla_serve["launches"]
     print("kernels: " + json.dumps([{"name": k, "launches": n,
                                      "slot_ssm_launches": slot_ssm_launches.get(k, 0),
                                      "moe_launches": moe_launches.get(k, 0),
                                      "moe_serve_launches": moe_serve_launches.get(k, 0),
                                      "mla_launches": mla_launches.get(k, 0),
+                                     "mla_serve_launches": mla_serve_launches.get(k, 0),
                                      "max_err_bf16": errs[k]["bfloat16"],
                                      "max_err_fp32": errs[k]["float32"]}
                                     for k, n in launch_counts.items()]))
@@ -4833,6 +5334,7 @@ def main() -> int:
     entries[2]["moe_serve_launches"] = moe_serve_launches["masked_attention"]
     for i, kname in ((1, "computed_attention"), (2, "masked_attention")):
         entries[i]["mla_launches"] = mla_launches[kname]
+        entries[i]["mla_serve_launches"] = mla_serve_launches[kname]
     entries[1]["tensor_core_instructions"] = routes["chunked_attention"]
     entries[2]["tensor_core_instructions"] = routes["chunked_attention"]
     # computed_attention also carries the per-block path: its launches there
@@ -4858,6 +5360,8 @@ def main() -> int:
         "moe_serve": {k: moe_serve[k] for k in ("launches", "plans")},
         "mla_launches": mla_launches["chunked_ffn"],
         "mla_forward": mla,
+        "mla_serve_launches": mla_serve_launches["chunked_ffn"],
+        "mla_serve": mla_serve,
         "tensor_core_instructions": routes["chunked_ffn"],
     })
     for kname, line, run, arch in (("ssd_scan", 78, ssm, "mamba2-1.3b"),

@@ -1,14 +1,16 @@
-"""Multi-head Latent Attention (DeepSeek-V2/V3, arXiv:2412.19437): the forward.
+"""Multi-head Latent Attention (DeepSeek-V2/V3, arXiv:2412.19437).
 
-A port of the JAX package's ``models/mla.py`` for the full-sequence
-(prefill) forward in the standard, decompressed form: each token keeps a
+A port of the JAX package's ``models/mla.py``.  Each token keeps a
 compressed latent ``ckv`` (``kv_lora_rank`` wide) and one RoPE key
-``k_rope`` shared by every head; per-head keys and values are decompressed
-from ``ckv`` by ``w_uk`` and ``w_uv``.  The scores are the sum of two
-products, ``q_nope·k_nopeᵀ + q_rope·k_ropeᵀ``, so no attention kernel
-computes them: the AutoChunk compiler chunks them as a generic loop.  The
-absorbed-form decode against the latent cache is not ported yet (ROADMAP
-queue A item 10 (c)).
+``k_rope`` shared by every head.  The full-sequence (prefill) forward runs
+the standard, decompressed form: per-head keys and values are decompressed
+from ``ckv`` by ``w_uk`` and ``w_uv``.  The one-token decode runs the
+absorbed form against the latent cache: ``w_uk`` is folded into the query
+and ``w_uv`` applied after the weighted sum, so the cache holds
+``kv_lora_rank + qk_rope_dim`` values a token instead of per-head K/V.  In
+both forms the scores are the sum of two products (``q·k_nopeᵀ +
+q_rope·k_ropeᵀ``), so no attention kernel computes them: the AutoChunk
+compiler chunks them as a generic loop.
 """
 from __future__ import annotations
 
@@ -87,3 +89,36 @@ def mla_attention_prefill(cfg, p, x, positions, *, window=None):
     out = a @ v.float()                                                # (B,H,Sq,dv)
     out = out.permute(0, 2, 1, 3).to(x.dtype).reshape(B, S, H * dv)
     return out @ p["w_o"], (ckv, k_rope)
+
+
+def mla_attention_decode(cfg, p, x, ckv, k_rope, pos, kv_valid):
+    """Absorbed-form decode of one token a row against the latent ring.
+
+    x: (B,1,d); ``ckv`` (B,W,kr) and ``k_rope`` (B,W,dr) the ring, this
+    token's latent already written; ``pos`` (B,): row ``b``'s token sits at
+    ``pos[b]``; ``kv_valid`` (B,W) bool.  Returns (B,1,d).  The caller
+    computes the token's latent (:func:`mla_latent`) once and writes it.
+
+    The JAX function's rounding points: ``q_eff`` in the model dtype, both
+    score products and ``P·ckv`` in float32, ``w_uv`` widened, the output
+    cast to ``x.dtype`` before ``w_o``.  With one query a row, each head is
+    a row of every product: the scores are (B, H, kr) @ (B, kr, W) against
+    the ring's own transposed view, and ``w_uk`` / ``w_uv`` multiply (H, B,
+    ·) batches.  Neither the ring nor a weight is expanded over the heads
+    or the batch: a broadcast ``@`` copies its expanded operand (the ring
+    over 128 heads, 4.3 GB a layer at full width).
+    """
+    B = x.shape[0]
+    H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    q_nope, q_rope = mla_queries(cfg, p, x, pos[:, None])              # (B,1,H,·)
+    # absorb W_uk into the query: (H,B,dn) @ (H,dn,kr) -> (B,H,kr)
+    q_eff = (q_nope[:, 0].transpose(0, 1) @ p["w_uk"].transpose(1, 2)).transpose(0, 1)
+    scale = 1.0 / math.sqrt(dn + dr)
+    lat = ckv.float()                                                  # (B,W,kr)
+    logits = (q_eff.float() @ lat.transpose(1, 2)
+              + q_rope[:, 0].float() @ k_rope.float().transpose(1, 2)) * scale  # (B,H,W)
+    logits = torch.where(kv_valid[:, None, :], logits, NEG_INF)
+    a = torch.softmax(logits, dim=-1)
+    o_lat = (a @ lat).transpose(0, 1)                                  # (H,B,kr)
+    out = (o_lat @ p["w_uv"].float()).to(x.dtype)                      # (H,B,dv)
+    return out.transpose(0, 1).reshape(B, 1, H * dv) @ p["w_o"]

@@ -1,7 +1,7 @@
 """Model assembly: init and full-sequence forward of the dense, MoE (MLA
 included), SSM and hybrid families, and the MTP head; the serving caches,
-decode step and prefill of the dense, vlm, MoE (without MLA), SSM and
-hybrid families.
+decode step and prefill of the dense, vlm, MoE (MLA's latent cache
+included), SSM and hybrid families.
 
 Parameters live in a :class:`Model` (an ``nn.Module``) whose ``state_dict``
 keys follow the JAX package's pytree paths: ``blocks.0.attn.wq`` for the
@@ -322,9 +322,9 @@ def _run_blocks(cfg: ModelConfig, params: Model, h, tag: str, block):
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: Model, batch, *, window: Optional[int] = None):
     """Full-sequence forward of the dense, MoE, SSM and hybrid families
-    (MoE with MLA attention too, as deepseek-v3 has it; MLA is not served
-    yet).  Returns (logits, aux_loss): the MoE routers' load-balance loss
-    summed over the MoE layers, 0 for the other families.
+    (MoE with MLA attention too, as deepseek-v3 has it).  Returns (logits,
+    aux_loss): the MoE routers' load-balance loss summed over the MoE
+    layers, 0 for the other families.
 
     With ``cfg.autochunk_budget`` each block runs the AutoChunk plan of one
     block, compiled at the first layer of its kind and replayed for the
@@ -398,13 +398,8 @@ def mtp_logits(cfg: ModelConfig, params, batch, h_final):
 # KV / state caches (serving)
 # ===========================================================================
 # A cache spec is a ``meta`` tensor (the port's ShapeDtypeStruct); a cache
-# is the same tree of zero tensors on a device.  K/V and conv windows are in
-# the model's dtype, the SSM and RG-LRU states in f32.
-
-def _no_decode(what: str):
-    return NotImplementedError(f"{what}: the port's decode has the dense, vlm, MoE, ssm and"
-                               " hybrid families, MLA not yet (ROADMAP queue A item 10 (c))")
-
+# is the same tree of zero tensors on a device.  K/V, MLA's latents and conv
+# windows are in the model's dtype, the SSM and RG-LRU states in f32.
 
 def cache_width(cfg: ModelConfig, max_len: int) -> int:
     """Ring width of an attention cache: the sliding window when it is
@@ -420,16 +415,19 @@ def _spec(shape, dtype):
 
 def layer_cache_spec(cfg: ModelConfig, kind: str, batch: int, width: int):
     """One layer's cache spec: ``{"k", "v"}`` of (batch, width, Kv, hd) for
-    ``attn``; ``local_attn`` caps the width at ``cfg.local_window``;
-    ``{"state", "conv"}`` for ``ssm`` and ``rglru``."""
+    ``attn``, or with MLA the latent ring ``{"ckv": (batch, width,
+    kv_lora_rank), "kr": (batch, width, qk_rope_dim)}``; ``local_attn``
+    caps the width at ``cfg.local_window``; ``{"state", "conv"}`` for
+    ``ssm`` and ``rglru``."""
     if kind in ("ssm", "rglru"):
         specs = SSM.ssm_state_specs if kind == "ssm" else RG.rglru_state_specs
         state, conv = specs(cfg, batch)
         return {"state": state, "conv": conv}
     if kind not in ("attn", "local_attn"):
         raise ValueError(kind)
-    if cfg.mla:
-        raise _no_decode("the MLA latent cache")
+    if cfg.mla and kind == "attn":
+        return {"ckv": _spec((batch, width, cfg.kv_lora_rank), cfg.torch_dtype),
+                "kr": _spec((batch, width, cfg.qk_rope_dim), cfg.torch_dtype)}
     w = min(width, cfg.local_window) if kind == "local_attn" else width
     shape = (batch, w, cfg.n_kv_heads, cfg.hd)
     return {"k": _spec(shape, cfg.torch_dtype), "v": _spec(shape, cfg.torch_dtype)}
@@ -536,16 +534,24 @@ def _ring_kv_positions(pos, width: int):
 def attn_block_decode(cfg, p, x, cache, pos, *, window=None, local=False):
     """x: (B,1,d), ``pos`` (B,): row ``b``'s token sits at ``pos[b]``.
 
-    Writes each row's K/V into its cache row at slot ``pos[b] % width`` in
-    place, then attends over that row's ring positions.  Returns ``x`` plus
-    the attention output."""
+    Writes each row's K/V (with MLA its latent ``ckv`` and RoPE key ``kr``)
+    into its cache row at slot ``pos[b] % width`` in place, then attends
+    over that row's ring positions.  Returns ``x`` plus the attention
+    output.  MLA attends to the whole ring, as the JAX package's decode
+    does: a ring as wide as the window holds exactly the window."""
     B = x.shape[0]
     h = L.apply_norm(cfg, x, p["ln1"])
-    width = cache["k"].shape[1]
+    width = cache["ckv" if cfg.mla else "k"].shape[1]
     slot = torch.remainder(pos, width).to(torch.int64)
     kv_pos = _ring_kv_positions(pos, width)
-    q, k, v = L.attn_project_qkv(cfg, p["attn"], h, pos[:, None])
     rows = torch.arange(B, device=x.device)
+    if cfg.mla:
+        ckv, k_rope = MLA.mla_latent(cfg, p["attn"], h, pos[:, None])
+        cache["ckv"][rows, slot] = ckv[:, 0]
+        cache["kr"][rows, slot] = k_rope[:, 0]
+        return x + MLA.mla_attention_decode(cfg, p["attn"], h, cache["ckv"], cache["kr"],
+                                            pos, kv_pos >= 0)
+    q, k, v = L.attn_project_qkv(cfg, p["attn"], h, pos[:, None])
     cache["k"][rows, slot] = k[:, 0]
     cache["v"][rows, slot] = v[:, 0]
     win = cfg.local_window if local else window
@@ -598,8 +604,6 @@ def rg_block_decode(cfg, p, x, cache):
 
 
 def _check_decode_family(cfg: ModelConfig):
-    if cfg.mla:
-        raise _no_decode("MLA")
     if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise ValueError(f"{cfg.family} has no decode cache")
 
@@ -612,8 +616,9 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *, window=None):
     one).  ``params`` is a :class:`Model`.  The SSM and RG-LRU layers carry
     no position; the hybrid's attention layers attend within
     ``cfg.local_window`` on their rings.  A MoE model's dense prefix layers
-    run the dense block, its later layers the MoE block; the loop indexes by
-    layer, so the stacked and the list form both serve."""
+    run the dense block, its later layers the MoE block; with MLA each
+    attends in the absorbed form against its latent ring.  The loop indexes
+    by layer, so the stacked and the list form both serve."""
     _check_decode_family(cfg)
     if window is None:
         window = cfg.sliding_window
@@ -670,14 +675,15 @@ def decode_fn(model: Model):
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Model, batch, max_len: int, *, window=None):
     """Run the full prompt; returns ``(logits (B,S,V), cache)`` with each
-    attention layer's K/V of the prompt in the ring layout of width
-    ``cache_width(cfg, max_len)`` (``cfg.local_window`` at most for the
-    hybrid's), and each SSM or RG-LRU layer's final state and conv window.
+    attention layer's K/V of the prompt (with MLA its latents ``ckv`` and
+    ``kr``) in the ring layout of width ``cache_width(cfg, max_len)``
+    (``cfg.local_window`` at most for the hybrid's), and each SSM or RG-LRU
+    layer's final state and conv window.
 
-    One pass: each attention layer's K/V are projected from its input, then
-    the block runs; with ``cfg.autochunk_budget`` the block is the per-block
-    compiled function the forward uses (its attention and SwiGLU MLP on
-    their kernels).  An SSM or RG-LRU block hands back its scan's final
+    One pass: each attention layer's K/V (or latents) are projected from
+    its normed input, then the block runs; with ``cfg.autochunk_budget``
+    the block is the per-block compiled function the forward uses (its
+    attention and SwiGLU MLP on their kernels).  An SSM or RG-LRU block hands back its scan's final
     state too, so it is compiled under its own tag (``ssm_prefill``,
     ``hyb_rg_prefill``); its conv window, the last W-1 rows of the conv
     input, is projected from the last rows of the normed input outside the
@@ -722,9 +728,14 @@ def prefill(cfg: ModelConfig, params: Model, batch, max_len: int, *, window=None
             caches.append({"state": state, "conv": conv})
             continue
         hn = L.apply_norm(cfg, h, p["ln1"])
-        _, k, v = L.attn_project_qkv(cfg, p["attn"], hn, positions)
+        if cfg.mla:
+            ckv, k_rope = MLA.mla_latent(cfg, p["attn"], hn, positions)
+            kv = {"ckv": ckv, "kr": k_rope}
+        else:
+            _, k, v = L.attn_project_qkv(cfg, p["attn"], hn, positions)
+            kv = {"k": k, "v": v}
         w = min(width, cfg.local_window) if fam == "hybrid" else width
-        caches.append(_pad_kv({"k": k, "v": v}, w, S))
+        caches.append(_pad_kv(kv, w, S))
         if fam == "hybrid":
             h = blocks["hyb_attn"](p, h)
         elif fam != "moe":

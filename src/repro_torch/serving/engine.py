@@ -6,8 +6,9 @@ A port of the JAX package's ``ServeEngine`` and ``PagedServeEngine``.
 ``ServeEngine`` holds ``max_batch`` slots, each one request's cache: K/V
 rings of ``cache_width`` positions (a sliding-window model keeps only its
 window, so it serves past it), and for the SSM and hybrid families each
-recurrent layer's f32 state and conv window.  It serves the dense, vlm,
-MoE (without MLA), SSM and hybrid families.  A request is prefilled
+recurrent layer's f32 state and conv window; for MLA each layer's latent
+ring (``ckv`` and ``kr``).  It serves the dense, vlm, MoE (MLA included),
+SSM and hybrid families.  A request is prefilled
 alone into a free slot; one decode wave then advances every slot by one token, each at its
 own position (one batched step with a ``pos`` of shape (B,), where the JAX
 package vmaps a one-row step).  With ``cfg.autochunk_budget`` the prefill
@@ -108,10 +109,15 @@ def _refuse_unported(autotune: bool, mesh, obs: bool) -> None:
 
 
 class ServeEngine:
-    """Fixed-slot batched serving over ring KV caches and recurrent states
-    (the dense, vlm, MoE, SSM and hybrid families; MLA is refused, naming
-    ROADMAP queue A item 10 (c)).  A MoE decode wave routes one token a
-    row, each row a routing group of its own, so no expert overflows.
+    """Fixed-slot batched serving over ring KV caches, MLA latent rings and
+    recurrent states (the dense, vlm, MoE, SSM and hybrid families).  A MoE
+    decode wave routes one token a row, each row a routing group of its
+    own, so no expert overflows.
+
+    The engine holds no bound method of itself (the plain wave is a
+    function of the config and weights, a compiled wave's closure holds its
+    graph and the weights), so a dropped engine and its cache are freed at
+    once, without a garbage collection.
 
     ``plan_accuracy`` (the predicted-against-measured peak of the serving
     plan) is left out of :meth:`metrics`: it comes with the observability
@@ -193,11 +199,6 @@ class ServeEngine:
         self.slot_req: List[Optional[Request]] = [None] * self.max_batch
         self.slot_pos = [0] * self.max_batch
 
-    def _plain_wave(self, cache, toks, pos):
-        """The eager decode wave: logits (B, V); K/V written in place."""
-        logits, _ = M.decode_step(self.cfg, self.params, cache, toks[:, None], pos)
-        return logits[:, 0]
-
     def _compile(self):
         from ..core import ChunkConfig, ChunkedFunction
 
@@ -218,7 +219,7 @@ class ServeEngine:
             # count too, so the ratios stay meaningful per engine)
             stats.bump("bucket_exec_misses")
             stats.bump("bucket_exec_compiles")
-        wave = self._plain_wave
+        wave = _plain_wave(self.cfg, self.params)
         if self.autochunk_budget is not None:
             if self._chunked_fn is None:
                 # one transform for the engine's lifetime: reconfigure()
@@ -371,6 +372,19 @@ class ServeEngine:
             if res is not None and res.cache_key:
                 out["plan_telemetry"] = self.plan_cache.entry_meta(res.cache_key)
         return out
+
+
+def _plain_wave(cfg: ModelConfig, params: Model):
+    """The eager decode wave ``(cache, toks, pos) -> logits (B, V)``, the
+    cache written in place.  A function of the config and weights, not a
+    method: stored on the engine, a bound method would hold the engine in
+    a reference cycle."""
+
+    def wave(cache, toks, pos):
+        logits, _ = M.decode_step(cfg, params, cache, toks[:, None], pos)
+        return logits[:, 0]
+
+    return wave
 
 
 @dataclass

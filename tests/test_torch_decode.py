@@ -9,7 +9,6 @@ JAX ``init_params`` carried over by ``repro_torch.interop``.  Logits and
 every cache leaf agree to atol 1e-5; decode logits against a forward over
 the sequence so far to atol 1e-4 (a longer chain of sums in another order).
 """
-import re
 
 import jax
 import jax.numpy as jnp
@@ -181,25 +180,16 @@ def test_rows_at_different_positions_decode_as_alone():
 
 @pytest.mark.parametrize("name,part", [("deepseek-v3-671b", "(c)"), ("qwen2-moe-a2.7b", "(c)")])
 def test_unported_families_raise_naming_their_item(name, part):
-    """MoE with MLA (deepseek-v3) is ROADMAP item 10 (c) and still raises;
-    the MoE family without it (qwen2-moe) decodes now: its prefill and
-    decode step give logits of the right shape (held against the JAX
-    package's in tests/test_torch_moe_decode.py), as the SSM and hybrid
-    families do (tests/test_torch_ssm_decode.py)."""
-    cfg = get_config(name).reduced()
-    if not cfg.mla:
-        cfg = cfg.with_(dtype="float32")
-        params = M.init_params(cfg, 0, device="cpu")
-        lg, cache = M.prefill(cfg, params, {"tokens": torch.tensor([[3, 5]])}, 8)
-        assert lg.shape == (1, 2, cfg.vocab_padded)
-        lg, _ = M.decode_step(cfg, params, cache, torch.tensor([[7]]), torch.tensor([2]))
-        assert lg.shape == (1, 1, cfg.vocab_padded) and bool(torch.isfinite(lg).all())
-        return
-    with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP queue A item 10 {part}")):
-        M.decode_step(cfg, None, None, torch.zeros((1, 1), dtype=torch.int64),
-                      torch.tensor([0]))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 10"):
-        M.prefill(cfg, None, {"tokens": torch.zeros((1, 2), dtype=torch.int64)}, 8)
-    if cfg.mla:
-        with pytest.raises(NotImplementedError, match=r"item 10 \(c\)"):
-            M.cache_specs(cfg, 1, 8)
+    """Both families of ROADMAP item 10 (c) decode now: MoE (qwen2-moe)
+    and MoE with MLA (deepseek-v3, its latent cache).  Their prefill and
+    decode step give finite logits of the right shape (held against the
+    JAX package's in tests/test_torch_moe_decode.py and
+    tests/test_torch_mla_decode.py), as the SSM and hybrid families do
+    (tests/test_torch_ssm_decode.py)."""
+    cfg = get_config(name).reduced().with_(dtype="float32")
+    params = M.init_params(cfg, 0, device="cpu")
+    lg, cache = M.prefill(cfg, params, {"tokens": torch.tensor([[3, 5]])}, 8)
+    assert lg.shape == (1, 2, cfg.vocab_padded)
+    assert set(M._layer_cache(cache, 0)) == ({"ckv", "kr"} if cfg.mla else {"k", "v"})
+    lg, _ = M.decode_step(cfg, params, cache, torch.tensor([[7]]), torch.tensor([2]))
+    assert lg.shape == (1, 1, cfg.vocab_padded) and bool(torch.isfinite(lg).all())

@@ -17,7 +17,6 @@ equals the unbudgeted one, its plan within the budget; compiled for the
 card, its block dispatches the attention and the shared expert's SwiGLU,
 and its routed experts' batched products stay a generic loop.
 """
-import re
 
 import jax
 import jax.numpy as jnp
@@ -365,8 +364,9 @@ def test_full_width_weight_bytes():
 def test_mla_still_raises_naming_its_item(what):
     """MLA's forward is ported (tests/test_torch_mla.py holds it against the
     JAX package): reduced deepseek-v3 builds, with its MLA and MTP params,
-    and its forward gives finite logits of the right shape.  Its decode
-    still raises naming ROADMAP queue A item 10 (c)."""
+    and its forward gives finite logits of the right shape.  Its decode is
+    ported too (tests/test_torch_mla_decode.py): one step against the
+    latent ring gives finite logits of the right shape."""
     cfg = get_config("deepseek-v3-671b").reduced()
     model = M.init_params(cfg, 0, device="cpu")
     if what == "init_params":
@@ -379,5 +379,7 @@ def test_mla_still_raises_naming_its_item(what):
         lg, aux = M.forward(cfg, model, {"tokens": torch.zeros((1, 2), dtype=torch.int64)})
         assert lg.shape == (1, 2, cfg.vocab_padded) and bool(torch.isfinite(lg).all())
         assert bool(torch.isfinite(aux))
-    with pytest.raises(NotImplementedError, match=re.escape("ROADMAP queue A item 10 (c)")):
-        M.decode_step(cfg, model, None, torch.zeros((1, 1), dtype=torch.int64), 0)
+    cache = M.init_cache(cfg, 1, 8, device="cpu")
+    lg, same = M.decode_step(cfg, model, cache, torch.zeros((1, 1), dtype=torch.int64), 0)
+    assert same is cache and lg.shape == (1, 1, cfg.vocab_padded)
+    assert bool(torch.isfinite(lg).all()) and float(cache["moe_layers"]["ckv"].abs().max()) > 0

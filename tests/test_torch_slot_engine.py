@@ -283,24 +283,61 @@ def test_engine_metrics(gpt):
     assert m["throughput_tok_s"] > 0 and m["mean_ttft_s"] >= 0 and m["exec_len"] == 64
 
 
+@pytest.mark.parametrize("engine", ["plain", "budget-0.5", "paged"])
+def test_dropped_engine_frees_its_cache_without_a_collection(gpt, engine):
+    """With the garbage collector off, a dropped engine and its cache die
+    at once: the engine holds no bound method of itself (the plain wave
+    is a function of the config and weights), so no reference cycle keeps
+    its card memory until a collection.  The first trace of a process
+    imports parts of torch whose import frames sit in a cycle with every
+    frame below them, so one compile runs first, with the collector on."""
+    import gc
+    import weakref
+
+    from repro_torch.serving import PagedServeEngine
+
+    cfg, params = gpt
+    ServeEngine(cfg, params, max_batch=2, max_len=32, autochunk_budget=0.5, device="cpu")
+    gc.collect()
+    gc.disable()
+    try:
+        if engine == "paged":
+            eng = PagedServeEngine(cfg, params, max_seqs=2, max_len=32, page_size=8,
+                                   device="cpu")
+        else:
+            budget = 0.5 if engine == "budget-0.5" else None
+            eng = ServeEngine(cfg, params, max_batch=2, max_len=32, autochunk_budget=budget,
+                              device="cpu")
+        eng.submit(Request(rid=0, prompt=[1, 2, 3], max_new_tokens=3))
+        eng.run()
+        leaf = eng.pool.pages if engine == "paged" else M._cache_leaves(eng.cache)[0][0]
+        refs = weakref.ref(eng), weakref.ref(leaf)
+        del eng, leaf
+        assert [r() for r in refs] == [None, None]
+    finally:
+        gc.enable()
+
+
 @pytest.mark.parametrize("kw,item", [
     ({"autotune": True}, "item 7"), ({"mesh": "data=1"}, "item 11"), ({"obs": True}, "item 9"),
     ({"arch": "deepseek-v3-671b"}, "item 10 (c)"), ({"arch": "qwen2-moe-a2.7b"}, "item 10 (c)"),
 ])
 def test_engine_refusals_name_their_item(kw, item):
-    """Each refusal names its ROADMAP item.  qwen2-moe, the MoE family
-    without MLA, is served since item 10 (c)'s MoE serving: its engine
-    builds and serves (tests/test_torch_moe_decode.py holds its tokens
-    against the JAX engine's); deepseek-v3's MLA is still refused."""
+    """Each refusal names its ROADMAP item.  Both families of item 10 (c)
+    are served now: qwen2-moe (MoE) and deepseek-v3 (MoE with MLA, its
+    latent ring) build and serve (tests/test_torch_moe_decode.py and
+    tests/test_torch_mla_decode.py hold their tokens against the JAX
+    engine's)."""
     kw = dict(kw)
     cfg = get_config(kw.pop("arch", "gpt-paper")).reduced()
-    if cfg.family == "moe" and not cfg.mla:
+    if cfg.family == "moe":
         cfg = cfg.with_(dtype="float32")
         eng = ServeEngine(cfg, M.init_params(cfg, 0, device="cpu"), max_batch=1, max_len=16,
                           device="cpu", **kw)
         eng.submit(Request(rid=0, prompt=[1, 2, 3], max_new_tokens=3))
         (req,) = eng.run()
         assert req.done and len(req.generated) == 3 and "moe_layers" in eng.cache
+        assert set(eng.cache["moe_layers"]) == ({"ckv", "kr"} if cfg.mla else {"k", "v"})
         return
     with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP queue A {item}")):
         ServeEngine(cfg, None, max_batch=1, max_len=16, device="cpu", **kw)
