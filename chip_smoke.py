@@ -25,6 +25,18 @@ qwen2-moe-a2.7b's and one at deepseek-v3-671b's:
   then phi3-mini-3.8b (hd 96) served the same way at full width, its fp32
   served logits at 4 layers against its dense forward, and a head dim the
   paged kernel has no instance for (48) refused when the engine is built;
+* observability (``[obs]`` lines): phase 4's timed run as the engine
+  records it (the tracer and registry reset just before it): one
+  ``serve.step`` span a step and one TTFT observation a request, the host
+  seconds of its admit, prefill-chunk and decode-wave spans beside phase
+  4b's device busy time, the paged engine's ``plan_accuracy``, the trace
+  summarised by ``python -m repro_torch.tools.trace_export`` in a
+  subprocess; the host cost of one step's obs calls (at most 2% of the
+  median step) and decode tok/s with obs on and off in turns; in
+  ``[slot]``, the compiled wave's compile spans and its ``plan_accuracy``
+  measured on the card, within 1% of this script's own peak around one
+  wave, and the serving CLI's ``--metrics-out``, ``--trace-out`` and
+  ``--prom-out`` files;
 * the prefix cache and its host spill tier at phi3-mini's full width: 8
   requests of 1152 tokens sharing a 1000-token system prompt, served one
   by one, rids 2 and 5 uncached fillers that force cached pages into the
@@ -551,6 +563,167 @@ def serve_plain_swapped(PA, engine, reqs):
         serving_engine.paged_attention_blocked = PA.paged_attention_blocked
     same = sum(a == b for r, rp in zip(reqs, plain_reqs) for a, b in zip(r.generated, rp.generated))
     return plain_reqs, same
+
+
+# ---------------------------------------------------------------------------
+# Observability on the card: the serving window's spans and histograms, the
+# cost of recording them, plan accuracy, the trace CLI
+# ---------------------------------------------------------------------------
+
+OBS = dict(cost_iters=20_000, cost_limit=0.02, turns=(True, False, False, True),
+           decode_prompt=64, decode_new=64, phases=("serve.admit", "serve.prefill_chunk",
+                                                    "serve.decode_wave"))
+
+
+def obs_reset():
+    """An enabled, empty tracer and a zeroed registry (counters too: the
+    script reads counters only as deltas)."""
+    from repro_torch.obs import metrics, tracing
+
+    tracing.set_enabled(True)
+    tracing.TRACER.clear()
+    metrics.default_registry().reset()
+
+
+def span_seconds():
+    """Host seconds of every recorded span, by name."""
+    from repro_torch.obs import tracing
+
+    out = collections.defaultdict(list)
+    for sp in tracing.TRACER.spans():
+        out[sp.name].append(sp.duration)
+    return out
+
+
+def obs_serving_window(engine, steps, n_reqs, card):
+    """Phase 4's timed run as its spans and histograms saw it (the tracer and
+    registry reset just before it): one ``serve.step`` span a step, one TTFT
+    observation a request, the host seconds of the admit, prefill-chunk and
+    decode-wave spans, and the paged engine's plan accuracy."""
+    from repro_torch.obs import metrics
+
+    spans = span_seconds()
+    hists = metrics.default_registry().snapshot()["histograms"]
+    n_ttft = hists["serve_ttft_seconds"]["count"]
+    n_step = len(spans["serve.step"])
+    check(n_step == steps, f"[obs] {n_step} serve.step spans in {steps} steps")
+    check(n_ttft == n_reqs, f"[obs] serve_ttft_seconds counted {n_ttft} of {n_reqs} requests")
+    host = {n: sum(spans[n]) for n in OBS["phases"] + ("serve.step",)}
+    counts = {n: len(spans[n]) for n in host}
+    acc = engine.plan_accuracy()
+    print(f"[obs] gpt-paper paged serving: serve.step spans {n_step} = steps {steps};"
+          f" serve_ttft_seconds count {n_ttft} = requests {n_reqs}; span counts {counts};"
+          f" step latency histogram count {hists['serve_step_latency_seconds']['count']}")
+    print(f"[obs] gpt-paper paged plan_accuracy: {acc.to_dict()}; {card}")
+    return dict(steps=n_step, ttft_count=n_ttft, span_counts=counts, host_s=host,
+                median_step_s=statistics.median(spans["serve.step"]),
+                plan_accuracy=acc.to_dict())
+
+
+def obs_split_line(obs, busy, wall, card):
+    """The serving window's host phases beside the device's busy time
+    (phase 4b's profiler run; None when the profiler saw no device time)
+    and the untraced wall."""
+    h = obs["host_s"]
+    enq = sum(h[n] for n in OBS["phases"])
+    rest = h["serve.step"] - enq
+    print(f"[obs] paged serving split, host spans of the timed run: wall {wall:.4f}s; steps"
+          f" {h['serve.step']:.4f}s = admit {h['serve.admit']:.4f} + prefill_chunk enqueue"
+          f" {h['serve.prefill_chunk']:.4f} + decode_wave enqueue {h['serve.decode_wave']:.4f}"
+          f" + the rest {rest:.4f} (sampling's wait for the card, scheduling, retire);"
+          f" device busy {'not measured' if busy is None else f'{busy:.4f}s'} (phase 4b,"
+          f" torch.profiler); {card}")
+    obs["split"] = dict(wall_s=wall, busy_s=busy, enqueue_s=enq, rest_s=rest)
+
+
+def obs_step_cost(engine, median_step_s, card):
+    """The obs calls of one step timed in a host loop (the JAX obs bench's
+    sequence: three spans, the step-latency and decode-throughput
+    observations, both gauges, two clock reads) over the median
+    ``serve.step`` span of the timed run: at most ``OBS["cost_limit"]``."""
+    from repro_torch.obs import metrics, tracing
+
+    reg = metrics.default_registry()
+    step_latency = reg.histogram("serve_step_latency_seconds", metrics.LATENCY_BUCKETS_S)
+    decode_tps = reg.histogram("serve_decode_tok_per_s", metrics.THROUGHPUT_BUCKETS)
+    pages, ratio = reg.gauge("serve_pages_in_use"), reg.gauge("serve_cache_hit_ratio")
+    rows = engine.max_seqs
+    t0 = time.perf_counter()
+    for _ in range(OBS["cost_iters"]):
+        ts = time.perf_counter()
+        with tracing.span("serve.step"):
+            with tracing.span("serve.admit"):
+                pass
+            with tracing.span("serve.decode_wave", prefill_rows=0, decode_rows=rows, q_max=1):
+                pass
+        dt = time.perf_counter() - ts
+        step_latency.observe(dt)
+        decode_tps.observe(rows / max(dt, 1e-9))
+        pages.set(rows)
+        ratio.set(0.5)
+    cost = (time.perf_counter() - t0) / OBS["cost_iters"]
+    share = cost / median_step_s
+    print(f"[obs] obs cost: {cost * 1e6:.2f} us a step (host loop of {OBS['cost_iters']}) over"
+          f" the median serve.step {median_step_s * 1e3:.3f} ms = {share:.3%} (limit"
+          f" {OBS['cost_limit']:.0%}); {card}")
+    check(share <= OBS["cost_limit"], f"[obs] obs cost {share:.3%} of a step")
+    return dict(cost_us=cost * 1e6, median_step_ms=median_step_s * 1e3, share=share)
+
+
+def obs_on_off(torch, engine, cfg, card):
+    """Decode-heavy serving with the engine's recording and the tracer on
+    and off in turns (on, off, off, on): decode tok/s of each turn, as
+    information."""
+    import numpy as np
+
+    from repro_torch.obs import tracing
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(5)
+    turns = []
+    for i, on in enumerate(OBS["turns"]):
+        engine._obs.enabled = on
+        tracing.set_enabled(on)
+        reqs = [Request(rid=500 + 10 * i + j, max_new_tokens=OBS["decode_new"],
+                        prompt=rng.integers(0, cfg.vocab_size, OBS["decode_prompt"]).tolist())
+                for j in range(engine.max_seqs)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            engine.submit(r)
+        engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        turns.append((on, sum(len(r.generated) - 1 for r in reqs) / wall))
+    engine._obs.enabled = True
+    tracing.set_enabled(True)
+    on = [t for o, t in turns if o]
+    off = [t for o, t in turns if not o]
+    print(f"[obs] decode tok/s by turn (obs on/off): "
+          + ", ".join(f"{'on' if o else 'off'} {t:.1f}" for o, t in turns)
+          + f"; mean on {statistics.mean(on):.1f}, off {statistics.mean(off):.1f}"
+          f" (information; {engine.max_seqs} rows, prompts {OBS['decode_prompt']}, new"
+          f" {OBS['decode_new']}); {card}")
+    return dict(turns=[dict(obs=o, decode_tok_s=t) for o, t in turns])
+
+
+def obs_trace_export():
+    """The tracer's spans exported to a file and summarised by
+    ``python -m repro_torch.tools.trace_export FILE --summary`` in a
+    subprocess; prints its top rows."""
+    from repro_torch.obs import tracing
+
+    with tempfile.TemporaryDirectory(prefix="trace-") as d:
+        path = os.path.join(d, "trace.json")
+        tracing.TRACER.export_chrome(path)
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.tools.trace_export", path,
+                               "--summary"], capture_output=True, text=True, timeout=120,
+                              env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    check(proc.returncode == 0, f"[obs] trace_export failed: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    for ln in lines[:10]:
+        print(f"[obs] trace_export: {ln}")
+    return lines[:10]
 
 
 def serve_phi3(torch, PA, stats, M, lens, card):
@@ -2134,22 +2307,76 @@ def slot_cli(torch):
     """``serve.main`` without ``--paged`` on the card (gpt-paper, full width):
     the fixed-slot engine with its wave compiled, then reconfigured inside
     the same bucket: ``bucket_exec_hits=1 new_traces=0 new_searches=0
-    new_wave_compiles=0``."""
+    new_wave_compiles=0``; with ``--metrics-out``, ``--trace-out`` and
+    ``--prom-out``, whose three files must exist and parse ([obs])."""
     import contextlib
     import io
 
     from repro_torch.launch import serve
+    from repro_torch.tools import trace_export
 
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        serve.main(SLOT["cli"])
+    with tempfile.TemporaryDirectory(prefix="obs-cli-") as d:
+        files = {flag: os.path.join(d, name) for flag, name in (
+            ("--metrics-out", "metrics.json"), ("--trace-out", "trace.json"),
+            ("--prom-out", "metrics.prom"))}
+        with contextlib.redirect_stdout(out):
+            serve.main(SLOT["cli"] + [a for kv in files.items() for a in kv])
+        check(all(os.path.exists(f) for f in files.values()), "[obs] CLI: an output is missing")
+        with open(files["--metrics-out"]) as f:
+            doc = json.load(f)
+        n_spans = sum(1 for e in trace_export.load_events(files["--trace-out"])
+                      if e.get("ph") == "X")
+        with open(files["--prom-out"]) as f:
+            prom = f.read()
     lines = [ln for ln in out.getvalue().splitlines() if ln.startswith("[serve]")]
     for ln in lines:
         print(f"[slot] CLI gpt-paper: {ln}")
     want = "[serve] second run: bucket_exec_hits=1 new_traces=0 new_searches=0 new_wave_compiles=0"
     check(want in lines, "the serving CLI's second run reused no warm wave")
+    ttft = doc["metrics"]["histograms"]["serve_ttft_seconds"]["count"]
+    print(f"[obs] CLI gpt-paper files: metrics JSON keys {sorted(doc)}, serve_ttft_seconds"
+          f" count {ttft}; trace {n_spans} spans; Prometheus text"
+          f" {prom.count(chr(10))} lines")
+    check(set(doc) == {"counters", "metrics", "plan_accuracy"} and ttft > 0 and n_spans > 0
+          and "# TYPE serve_ttft_seconds histogram" in prom,
+          "[obs] CLI: the metrics, trace or Prometheus file does not parse as written")
     torch.cuda.empty_cache()
-    return [ln for ln in lines if "requests" in ln or "second run:" in ln]
+    return [ln for ln in lines if "requests" in ln or "second run:" in ln
+            or "plan_accuracy" in ln]
+
+
+SLOT_WAVE_SPANS = ("compile.trace", "compile.estimate", "compile.search", "compile.select",
+                   "compile.emit", "serve.compile")
+
+
+def obs_slot_wave(torch, engine, Request, prompt, wave_args, card):
+    """[obs] on the slot phase's compiled wave (budget 0.5, the tracer reset
+    just before the engine was built): its compile spans, then one request
+    served through ``step()``, whose wave is the engine's device measurement;
+    its ``plan_accuracy()`` (source ``device``) must lie within 1% of this
+    script's own ``max_memory_allocated`` delta around one compiled wave
+    (``measure_forward``, as the block peaks are measured)."""
+    names = set(span_seconds())
+    missing = [n for n in SLOT_WAVE_SPANS if n not in names]
+    check(not missing, f"[obs] slot wave compile: no spans {missing} (got {sorted(names)})")
+    req = Request(rid=300, prompt=prompt, max_new_tokens=2)
+    engine.submit(req)
+    engine.run()
+    check(req.done and len(req.generated) == 2, "[obs] slot: the measured request did not finish")
+    acc = engine.plan_accuracy()
+    with torch.no_grad():
+        _, peak, _ = measure_forward(torch, engine._decode_wave, wave_args)
+    ratio = acc.measured_bytes / peak
+    print(f"[obs] slot compiled wave spans: {sorted(names)}")
+    print(f"[obs] slot compiled wave plan_accuracy: predicted {acc.predicted_bytes} B, measured"
+          f" {acc.measured_bytes} B (source {acc.source}; interpret watermark"
+          f" {acc.extra.get('interpret_measured_bytes')} B), error {acc.error_pct:.2f}%; this"
+          f" script's max_memory_allocated delta around one compiled wave {peak} B (engine /"
+          f" script {ratio:.4f}, limit within 1%); {card}")
+    check(acc.source == "device" and abs(acc.measured_bytes - peak) <= 0.01 * peak,
+          f"[obs] slot wave: device plan_accuracy {acc.to_dict()} against {peak} B")
+    return dict(spans=sorted(names), plan_accuracy=acc.to_dict(), script_peak=peak)
 
 
 def run_slot_phase(torch, CA, CF, stats, M, flush, card):
@@ -2244,6 +2471,7 @@ def run_slot_phase(torch, CA, CF, stats, M, flush, card):
 
     # the compiled wave (budget 0.5) against the plain one, on the same
     # cache, tokens and positions; then reconfigured inside its bucket
+    obs_reset()             # [obs]: the wave compile's spans
     before = stats.snapshot()
     t0 = time.perf_counter()
     e2 = ServeEngine(cfg_ac, model, max_batch=SLOT["max_batch"], max_len=SLOT["max_len"],
@@ -2298,6 +2526,7 @@ def run_slot_phase(torch, CA, CF, stats, M, flush, card):
                           reps=SLOT["wave_reps"])
     print(f"[slot] decode wave {ms_comp:.3f} ms compiled, {ms_plain:.3f} ms plain (CUDA-event"
           f" medians of {SLOT['wave_reps']}, 2 rows of 8192 cache slots, 32 layers); {card}")
+    obs = obs_slot_wave(torch, e2, Request, reqs[2].prompt, (e2.cache, toks_w, pos_w), card)
     del engine
     torch.cuda.empty_cache()
     before = stats.snapshot()
@@ -2329,6 +2558,7 @@ def run_slot_phase(torch, CA, CF, stats, M, flush, card):
                 wave_err=wave_err, wave_err_from_fp32=d_comp, plain_wave_err_from_fp32=d_plain,
                 wave_ms=ms_comp, plain_wave_ms=ms_plain,
                 wave_stages=len(res.plan), wave_build_s=wave_build, fp32=fp32, cli=cli,
+                obs=obs,
                 attention_errs={f"{k}/{dt}": v for (k, dt), v in errs.items()}, errs=errs)
 
 
@@ -4915,6 +5145,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
                     max_new_tokens=SERVE["max_new"]) for i, n in enumerate(lens)]
+    obs_reset()             # [obs]: the timed run's spans and histograms alone
     wall, launches, d, steps, toks = serve_timed(torch, PA, stats, engine, cfg, reqs)
     ttft = [r.ttft_s for r in reqs]
     print(f"[serve] gpt-paper bf16 full width: {len(reqs)} requests (prompts"
@@ -4928,6 +5159,8 @@ def main() -> int:
           f" steps; pages allocated {d['pages_allocated']} freed {d['pages_freed']};"
           f" sched_stats {dict(engine.sched_stats)}; served tokens sha256"
           f" {token_digest(reqs)}")
+    obs = obs_serving_window(engine, steps, len(reqs), card)
+    obs["trace_export"] = obs_trace_export()
 
     # ---- 4b. where the serving window's device time goes (informational) --
     # the same requests again under torch.profiler; its host overhead
@@ -4946,6 +5179,7 @@ def main() -> int:
         if e.device_type == DeviceType.CUDA:
             device_us[e.name] += e.time_range.elapsed_us()
     busy = sum(device_us.values()) / 1e6
+    obs_split_line(obs, busy if busy else None, wall, card)
     if busy == 0:
         print("[trace] torch.profiler recorded no device time: the split of the"
               " serving window is not measured")
@@ -4963,14 +5197,20 @@ def main() -> int:
     plain_reqs, same = serve_plain_swapped(PA, engine, reqs)
     print(f"[serve] the same requests with the plain version swapped in: served tokens sha256"
           f" {token_digest(plain_reqs)}; {same} of {toks} tokens equal to the kernel's")
+
+    # ---- 4d. [obs]: the cost of recording a step, decode with obs on / off -
+    obs["cost"] = obs_step_cost(engine, obs["median_step_s"], card)
+    obs_reset()
+    obs["on_off"] = obs_on_off(torch, engine, cfg, card)
+    lap("obs")
     del engine, params
 
-    # ---- 4d. phi3-mini-3.8b served at full width: its hd 96 on the kernel -
+    # ---- 4e. phi3-mini-3.8b served at full width: its hd 96 on the kernel -
     # (counts zeroed just before, read just after); hd 48 still refused
     torch.cuda.empty_cache()
     phi3_serve = serve_phi3(torch, PA, stats, M, lens, card)
 
-    # ---- 4e. phi3-mini-3.8b's prefix cache and host spill tier -----------
+    # ---- 4f. phi3-mini-3.8b's prefix cache and host spill tier -----------
     # (counts zeroed just before the scenario, read just after); the cache
     # off beside it, fp32 on/off at 4 layers, then the serving CLI's
     # --shared-prefix scenario at gpt-paper's width
@@ -5315,6 +5555,7 @@ def main() -> int:
             "shape": {k: t[k] for k in ("sq", "skv", "q_offset", "bytes", "operations")},
             "forward": dict(fwd[mode], fp32_logits_err=fp32_err[mode]),
         })
+    entries[0]["obs"] = obs
     entries[0]["phi3_serve"] = phi3_serve
     entries[0]["prefix_serve"] = prefix_serve
     entries[1]["cache"] = cache_run

@@ -23,6 +23,7 @@ from typing import Dict, List, Set
 import torch
 from torch.fx import Node
 
+from ..obs.tracing import span
 from . import stats
 from .graph import Graph, node_outs, trace
 
@@ -154,8 +155,10 @@ def plan_prefill_chunk(cfg, *, budget: float, max_len: int,
     candidates.append(max_len)
 
     peaks: Dict[int, int] = {}
-    for c in candidates:
-        peaks[c] = estimate_memory(_prefill_step_graph(cfg, c, max_len)).peak_bytes
+    with span("compile.plan_prefill", max_len=max_len, candidates=len(candidates)):
+        for c in candidates:
+            with span("compile.estimate", chunk=c):
+                peaks[c] = estimate_memory(_prefill_step_graph(cfg, c, max_len)).peak_bytes
     baseline = peaks[max_len]
     budget_bytes = int(budget) if budget > 1.0 else int(baseline * budget)
 

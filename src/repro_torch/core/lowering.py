@@ -33,6 +33,7 @@ import torch
 from torch.fx import Node
 from torch.utils import _pytree as pytree
 
+from ..obs.tracing import span
 from . import stats
 from .graph import Graph, alias_source, atom_bytes, node_outs, op_name, vshape
 from .search import ChunkCandidate
@@ -452,9 +453,10 @@ def apply_chunk(g: Graph, cand: ChunkCandidate, n_chunks: int, *,
     suffix.  A pure data-structure rewrite; nothing is traced.
     """
     stats.bump("lowering_rewrites")
-    node = make_chunk_loop(g, cand, n_chunks)
-    if validate:
-        validate_body(node)
+    with span("lower.apply_chunk", region=(cand.s, cand.e), n_chunks=n_chunks):
+        node = make_chunk_loop(g, cand, n_chunks)
+        if validate:
+            validate_body(node)
     nodes = (list(g.nodes[:cand.s]) + [g.nodes[i] for i in cand.hoisted] + [node]
              + list(g.nodes[cand.e + 1:]))
     return Graph(invars=list(g.invars), outvars=list(g.outvars), nodes=nodes,

@@ -19,8 +19,12 @@ a directory) a search first looks up the exact structural key, then the
 shape bucket, and only then searches; plans persist across processes.  With
 ``ChunkConfig(canonical_bucket_exec=True)`` one executable per shape bucket,
 compiled at the bucket's boundary, serves every length in the bucket by
-padding (zero traces, zero searches).  Observability spans and plan accuracy
-wait for ROADMAP queue A item 9.  A port of ``repro/core/staged.py``.
+padding (zero traces, zero searches).  Each pass runs inside a host span
+of the JAX package's name (``compile.trace``, ``compile.estimate``,
+``compile.search``, ``compile.select``, ``compile.lower``, ``compile.emit``,
+``compile.replay``), and every compile attaches and publishes its
+predicted-against-measured peak (``AutoChunkResult.accuracy``).  A port of
+``repro/core/staged.py``.
 """
 from __future__ import annotations
 
@@ -34,6 +38,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
+from ..obs import accuracy as obs_accuracy
+from ..obs.tracing import span
 from . import stats
 from .codegen import build_fn_from_plan
 from .config import ChunkConfig, ShapeBucketer
@@ -83,6 +89,10 @@ class AutoChunkResult:
     plan_stages: List[PlanStage] = field(default_factory=list)
     from_cache: bool = False
     cache_key: Optional[str] = None
+    # predicted-against-measured activation peak (repro_torch.obs.accuracy),
+    # attached by Planned.compile(): the search's prediction beside the
+    # emitted graph's live-set watermark
+    accuracy: Optional[obs_accuracy.PlanAccuracy] = None
 
     def to_chunk_plan(self) -> ChunkPlan:
         """Detach the compilation into a serializable :class:`ChunkPlan`."""
@@ -197,9 +207,10 @@ def _search_loop(g: Graph, prof: MemoryProfile, budget_bytes: int, config: Chunk
             break
         cands = search_chunks(g, prof, window=config.window, allow_hoist=config.allow_hoist,
                               dim_blocklist=frozenset(config.dim_blocklist))
-        ranked = rank_candidates(g, prof, cands, budget_bytes, config.hyper,
-                                 kernel_dispatch=kd, mask_mode=config.mask_mode,
-                                 target=target)
+        with span("compile.select", stage=stage, candidates=len(cands)):
+            ranked = rank_candidates(g, prof, cands, budget_bytes, config.hyper,
+                                     kernel_dispatch=kd, mask_mode=config.mask_mode,
+                                     target=target)
         if config.verbose:
             print(f"[autochunk] stage {stage}: peak={prof.peak_bytes / 2**20:.1f}MiB"
                   f" budget={budget_bytes / 2**20:.1f}MiB candidates={len(ranked)}")
@@ -286,9 +297,11 @@ class Traced:
 
         self.flat_fn = flat_fn
         meta_args = [_to_meta(x) for x in self.flat_args]
-        self.graph, _ = trace(flat_fn, meta_args, weight_argnums=())
+        with span("compile.trace", leaves=len(self.flat_args)):
+            self.graph, _ = trace(flat_fn, meta_args, weight_argnums=())
         self.graph.weight_invars = {self.graph.invars[i] for i in self.weight_flat}
-        self.profile: MemoryProfile = estimate_memory(self.graph)
+        with span("compile.estimate"):
+            self.profile: MemoryProfile = estimate_memory(self.graph)
         self.trace_s = time.perf_counter() - self._t0
         self.search_s = 0.0               # set by search(); stays 0 on a replay
         self.baseline_peak: int = self.profile.peak_bytes
@@ -366,15 +379,18 @@ class Traced:
             cf.counters["bucket_misses"] += 1
 
         t0 = time.perf_counter()
-        lowered, prof, records, pstages = _search_with_anneal(
-            self.graph, self.profile, self.budget_bytes, config, self.target)
+        with span("compile.search", budget_bytes=self.budget_bytes):
+            lowered, prof, records, pstages = _search_with_anneal(
+                self.graph, self.profile, self.budget_bytes, config, self.target)
         self.search_s = time.perf_counter() - t0
         if pstages:
             if config.resolve_kernel_dispatch():
-                lowered = dispatch_graph(lowered, mask_mode=config.mask_mode,
-                                         target=self.target)
-                prof = estimate_memory(lowered)
-            cur = emit(lowered)
+                with span("compile.lower", stages=len(pstages)):
+                    lowered = dispatch_graph(lowered, mask_mode=config.mask_mode,
+                                             target=self.target)
+                    prof = estimate_memory(lowered)
+            with span("compile.emit", stages=len(pstages)):
+                cur = emit(lowered)
         else:  # nothing chunked: the function itself is the program
             cur = self.flat_fn
         plan = ChunkPlan(cache_key=ckey, budget_bytes=self.budget_bytes,
@@ -399,10 +415,11 @@ class Traced:
         config = self.cf.config
         rec: List[Tuple[Graph, Any, int]] = []
         try:
-            fn, g, prof = build_fn_from_plan(
-                self.graph, saved, rescale=rescale, record=rec,
-                kernel_dispatch=config.resolve_kernel_dispatch(), mask_mode=config.mask_mode,
-                target=self.target)
+            with span("compile.replay", stages=len(saved.stages), rescale=rescale):
+                fn, g, prof = build_fn_from_plan(
+                    self.graph, saved, rescale=rescale, record=rec,
+                    kernel_dispatch=config.resolve_kernel_dispatch(),
+                    mask_mode=config.mask_mode, target=self.target)
         except PlanApplyError:
             stats.bump("plan_replay_failures")
             return None
@@ -476,7 +493,25 @@ class Planned:
             elapsed_s=time.perf_counter() - t._t0, trace_s=t.trace_s,
             search_s=t.search_s, from_cache=self.from_cache,
             cache_key=self.plan.cache_key)
+        result.accuracy = obs_accuracy.publish(self.plan_accuracy())
         return CompiledFunction(result, bucket_hit=self.bucket_hit)
+
+    def plan_accuracy(self) -> obs_accuracy.PlanAccuracy:
+        """Predicted-against-measured activation peak of this plan.
+
+        *Predicted* is the search-time number: the last stage's
+        ``peak_after`` (the chunk loops' modeled body peaks, before kernel
+        dispatch), or the baseline peak of a plan with no stage.
+        *Measured* is the live-set watermark of the graph the plan runs
+        (after dispatch), so the error is the search model's drift.  The
+        serving layer upgrades the measurement to the card's allocator peak
+        over one run of the plan (``obs.accuracy.with_device_measurement``).
+        """
+        predicted = (self.plan.stages[-1].peak_after if self.plan.stages
+                     else self.plan.baseline_peak)
+        return obs_accuracy.compare(
+            predicted, obs_accuracy.watermark_graph(self.graph), "interpret",
+            cache_key=self.plan.cache_key, final_peak_estimate=self.profile.peak_bytes)
 
 
 class CompiledFunction:

@@ -1,12 +1,21 @@
 """Pipeline counters: observable evidence of which passes and events ran.
 
-Plain ``bump``/``snapshot``/``delta``/``reset`` over one process-wide dict,
-with the JAX package's names.  The metrics registry and its exporters come
-with the observability slice (ROADMAP queue A item 9).
+A thin compat shim over the typed registry in
+:mod:`repro_torch.obs.metrics`: every counter below is a ``Counter`` in the
+process-wide registry, updates are thread-safe (``bump`` takes the
+registry's lock, so concurrent serving and compile threads lose no
+increment), and the same registry carries the serving histograms and
+gauges that ``serve --metrics-out`` exports.  The dict API —
+``bump`` / ``snapshot`` / ``reset`` / ``delta`` returning plain
+``{name: int}`` dicts — is the JAX package's, with its names.
 """
 from __future__ import annotations
 
 from typing import Dict
+
+from ..obs import metrics as _metrics
+
+_REGISTRY = _metrics.default_registry()
 
 # Pre-registered so snapshots always carry the full key set.
 COUNTERS = (
@@ -68,23 +77,25 @@ COUNTERS = (
     "pages_restored",
 )
 
-_COUNTS: Dict[str, int] = {name: 0 for name in COUNTERS}
+for _name in COUNTERS:
+    _REGISTRY.counter(_name)
 
 
 def bump(name: str, by: int = 1) -> None:
-    _COUNTS[name] = _COUNTS.get(name, 0) + by
+    """Thread-safe counter increment (creates the counter on first use)."""
+    _REGISTRY.counter(name).inc(by)
 
 
 def snapshot() -> Dict[str, int]:
     """Copy of all counters (safe to diff against a later snapshot)."""
-    return dict(_COUNTS)
+    return _REGISTRY.counter_values()
 
 
 def reset() -> None:
-    for name in _COUNTS:
-        _COUNTS[name] = 0
+    _REGISTRY.reset(counters_only=True)
 
 
 def delta(before: Dict[str, int]) -> Dict[str, int]:
     """Counter increments since ``before`` (a prior :func:`snapshot`)."""
-    return {k: v - before.get(k, 0) for k, v in _COUNTS.items()}
+    cur = _REGISTRY.counter_values()
+    return {k: cur[k] - before.get(k, 0) for k in cur}

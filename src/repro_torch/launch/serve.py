@@ -30,12 +30,22 @@ whose admission presses the pool, so cached pages spill and the next shared
 request restores them.  The ``[serve] prefix:`` line reports the cache's
 counters.
 
-``--autotune``, ``--mesh`` and the observability outputs are refused with
-their ROADMAP items (queue A items 7, 11 and 9).
+``--metrics-out FILE`` dumps the metrics registry (counters, gauges,
+TTFT / step-latency histograms) plus the ``plan_accuracy`` block
+(predicted against measured activation peak) as JSON; ``--trace-out FILE``
+exports every compile and serving span as Chrome-trace JSON (Perfetto,
+``chrome://tracing``, ``python -m repro_torch.tools.trace_export``);
+``--prom-out FILE`` writes the Prometheus text exposition.  ``--no-obs``
+turns engine recording and the tracer off.  Both paths print the
+``[serve] plan_accuracy: ...`` line when the engine has a plan.
+
+``--autotune`` and ``--mesh`` are refused with their ROADMAP items (queue
+A items 7 and 11).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -45,7 +55,34 @@ from ..configs import get_config
 from ..core import stats
 from ..models import model as M
 from ..core.plan import PlanCache
+from ..obs import metrics as obs_metrics
+from ..obs.tracing import TRACER
 from ..serving import PagedServeEngine, Request, ServeEngine
+
+
+def write_obs_outputs(args, engine) -> None:
+    """Print the plan-accuracy status line and write ``--metrics-out`` /
+    ``--trace-out`` / ``--prom-out``.  Shared by the slot and paged paths;
+    all exports happen after serving, off the hot path."""
+    acc = engine.plan_accuracy()
+    if acc is not None:
+        print(f"[serve] {acc.status_line()}")
+    if args.metrics_out:
+        doc = {"counters": stats.snapshot(),
+               "metrics": obs_metrics.default_registry().snapshot()}
+        if acc is not None:
+            doc["plan_accuracy"] = acc.to_dict()
+        with open(args.metrics_out, "w") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+            f.write("\n")
+        print(f"[serve] metrics snapshot -> {args.metrics_out}")
+    if args.prom_out:
+        with open(args.prom_out, "w") as f:
+            f.write(obs_metrics.default_registry().to_prometheus())
+        print(f"[serve] prometheus exposition -> {args.prom_out}")
+    if args.trace_out:
+        TRACER.export_chrome(args.trace_out)
+        print(f"[serve] chrome trace ({len(TRACER.spans())} spans) -> {args.trace_out}")
 
 
 def serve_paged(cfg, params, rng, args):
@@ -59,7 +96,7 @@ def serve_paged(cfg, params, rng, args):
         page_size=args.page_size, num_pages=args.num_pages,
         autochunk_budget=args.autochunk, prefill_chunk=chunk,
         prefix_cache=args.prefix_cache, spill_pages=args.spill_pages,
-        greedy=not args.sample, seed=args.seed, device=args.device,
+        greedy=not args.sample, seed=args.seed, obs=not args.no_obs, device=args.device,
     )
     plan = engine.prefill_plan
     plan_note = (
@@ -133,6 +170,7 @@ def serve_paged(cfg, params, rng, args):
             f" spilled_nodes={pc['spilled_nodes']}"
         )
     print(f"[serve] kv pool: {m['kv_pool']}")
+    write_obs_outputs(args, engine)
     for r in done[:3]:
         print(f"  req {r.rid}: {r.generated[:8]}...")
     return engine
@@ -149,7 +187,7 @@ def serve_slots(cfg, params, rng, args):
         autochunk_budget=args.autochunk, plan_cache=args.plan_cache,
         bucket_lens=bucket_lens, canonical_bucket_exec=not args.no_canonical_exec,
         cache_policy=args.cache_policy, cache_max_entries=args.cache_max_entries,
-        greedy=not args.sample, seed=args.seed, device=args.device,
+        greedy=not args.sample, seed=args.seed, obs=not args.no_obs, device=args.device,
     )
     t_build = time.perf_counter() - t0
     if args.autochunk is not None:
@@ -196,6 +234,7 @@ def serve_slots(cfg, params, rng, args):
           f" trace_calls={snap['trace_calls']}"
           f" kernel_dispatch_hits={snap['kernel_dispatch_hits']}"
           f" kernel_dispatch_misses={snap['kernel_dispatch_misses']}")
+    write_obs_outputs(args, engine)
     for r in done[:3]:
         print(f"  req {r.rid}: {r.generated[:8]}...")
     return engine
@@ -238,9 +277,18 @@ def main(argv=None):
                     help="evict plans beyond this count at engine idle points")
     ap.add_argument("--mesh", type=str, default=None,
                     help="refused: device meshes are ROADMAP queue A item 11")
-    for flag in ("--metrics-out", "--trace-out", "--prom-out"):
-        ap.add_argument(flag, type=str, default=None,
-                        help="refused: observability is ROADMAP queue A item 9")
+    ap.add_argument("--metrics-out", type=str, default=None,
+                    help="write a JSON metrics snapshot (counters, gauges,"
+                         " TTFT/latency histograms, plan_accuracy block)"
+                         " after serving")
+    ap.add_argument("--trace-out", type=str, default=None,
+                    help="write compile+serve spans as Chrome-trace JSON"
+                         " (Perfetto / chrome://tracing loadable)")
+    ap.add_argument("--prom-out", type=str, default=None,
+                    help="write the Prometheus text exposition of the"
+                         " metrics registry")
+    ap.add_argument("--no-obs", action="store_true",
+                    help="turn engine metric/span recording and the tracer off")
     ap.add_argument("--sample", action="store_true",
                     help="sample from the logits instead of greedy argmax")
     ap.add_argument("--seed", type=int, default=0)
@@ -273,12 +321,11 @@ def main(argv=None):
                          " every third is an uncached filler)")
     args = ap.parse_args(argv)
     for asked, item in ((args.autotune, "--autotune: ROADMAP queue A item 7 (autotune)"),
-                        (args.mesh, "--mesh: ROADMAP queue A item 11 (mesh)"),
-                        (args.metrics_out or args.trace_out or args.prom_out,
-                         "--metrics-out/--trace-out/--prom-out: ROADMAP queue A item 9"
-                         " (observability)")):
+                        (args.mesh, "--mesh: ROADMAP queue A item 11 (mesh)")):
         if asked:
             sys.exit(f"not in the port yet: {item}")
+    if args.no_obs:
+        TRACER.enabled = False
 
     cfg = get_config(args.arch)
     if args.local:

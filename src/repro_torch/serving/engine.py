@@ -37,13 +37,28 @@ the hand-written paged attention kernel at every layer:
   ``spill_pages`` adds the host spill tier, so an admission short of pages
   spills cached pages and retries.
 
+Both engines record, unless built with ``obs=False``, the JAX package's
+serving telemetry (:class:`_EngineObs`): host spans ``serve.step``,
+``serve.admit``, ``serve.prefill_chunk`` and ``serve.decode_wave`` (the
+slot engine's wave compile under ``serve.compile``), the TTFT, queue-wait,
+step-latency and decode-throughput histograms, and the pages-in-use and
+cache-hit-ratio gauges, all at step boundaries.  The spans measure host
+time: a span around a launch ends when the work is enqueued, and the
+step's sampling (``.tolist()``) is where the host waits for the card
+(``repro_torch.obs.tracing``).  The JAX paged engine's
+``serve.step_compile`` (one ``jax.jit`` per query width) has no
+counterpart: the port's ragged step runs eagerly and compiles nothing.
+Each engine's ``plan_accuracy()`` holds its plan's predicted activation
+peak against the graph's watermark and, on the card, against the
+allocator's peak over the plan's first run.
+
 Not in this slice, for either engine (each raises ``NotImplementedError``
-naming its ROADMAP item): kernel autotuning, the device mesh, and the
-telemetry spans and histograms.
+naming its ROADMAP item): kernel autotuning and the device mesh.
 """
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -58,6 +73,9 @@ from ..kernels.paged_attention import cuda_refusal, paged_attention_blocked
 from ..models import layers as L
 from ..models import model as M
 from ..models.model import Model
+from ..obs import accuracy as obs_accuracy
+from ..obs import metrics as obs_metrics
+from ..obs.tracing import span as _span
 
 
 @dataclass
@@ -98,14 +116,76 @@ def _sample(logits, greedy: bool, generator) -> List[int]:
     return torch.multinomial(probs, 1, generator=generator)[:, 0].tolist()
 
 
-def _refuse_unported(autotune: bool, mesh, obs: bool) -> None:
+def _refuse_unported(autotune: bool, mesh) -> None:
     for name, asked, item in (
         ("autotune", autotune, "ROADMAP queue A item 7 (autotune)"),
         ("mesh", mesh is not None, "ROADMAP queue A item 11 (mesh)"),
-        ("obs", obs, "ROADMAP queue A item 9 (observability)"),
     ):
         if asked:
             raise NotImplementedError(f"{name} is not in the port yet: {item}")
+
+
+class _EngineObs:
+    """Step-boundary serving instruments shared by both engines (the JAX
+    package's names, buckets and help strings).
+
+    All recording happens at step boundaries with values the scheduler
+    already holds on the host (no device syncs, nothing per token).
+    ``enabled=False`` turns every record and span into a no-op.
+    """
+
+    def __init__(self, enabled: bool = True):
+        self.enabled = enabled
+        reg = obs_metrics.default_registry()
+        self.ttft = reg.histogram(
+            "serve_ttft_seconds", obs_metrics.LATENCY_BUCKETS_S,
+            "submit -> first token, per finished prefill")
+        self.queue_wait = reg.histogram(
+            "serve_queue_wait_seconds", obs_metrics.LATENCY_BUCKETS_S,
+            "submit -> admission, per admitted request")
+        self.step_latency = reg.histogram(
+            "serve_step_latency_seconds", obs_metrics.LATENCY_BUCKETS_S,
+            "one engine step (admit + ragged batch + sample + retire)")
+        self.decode_tps = reg.histogram(
+            "serve_decode_tok_per_s", obs_metrics.THROUGHPUT_BUCKETS,
+            "decode tokens per second, per step carrying decode rows")
+        self.pages_in_use = reg.gauge(
+            "serve_pages_in_use", "KV-pool pages currently allocated")
+        self.cache_hit_ratio = reg.gauge(
+            "serve_cache_hit_ratio",
+            "plan-cache (slot engine) or prefix-cache (paged) hit ratio")
+
+    def span(self, name: str, **args):
+        return _span(name, **args) if self.enabled else nullcontext()
+
+    def record_admit(self, req: Request, now: float) -> None:
+        if self.enabled:
+            self.queue_wait.observe(max(now - req.submitted_at, 0.0))
+
+    def record_first_token(self, req: Request) -> None:
+        if self.enabled and req.ttft_s is not None:
+            self.ttft.observe(req.ttft_s)
+
+    def record_step(self, dt_s: float, decode_tokens: int) -> None:
+        if not self.enabled:
+            return
+        self.step_latency.observe(dt_s)
+        if decode_tokens > 0 and dt_s > 0:
+            self.decode_tps.observe(decode_tokens / dt_s)
+
+    def peak_run(self, device, fn, *args):
+        """``fn(*args)`` with the card's allocator peak taken around it:
+        returns ``(out, (baseline_bytes, peak_bytes))``, or ``(out, None)``
+        when disabled or off the card.  Resets the process's
+        ``max_memory_allocated`` mark (``obs.accuracy.reset_device_peak``);
+        no device sync: the allocator counts as the host issues work."""
+        base = (obs_accuracy.device_bytes_in_use(device)
+                if self.enabled and device.type == "cuda" else None)
+        if base is None:
+            return fn(*args), None
+        obs_accuracy.reset_device_peak(device)
+        out = fn(*args)
+        return out, (base, obs_accuracy.device_peak_bytes(device))
 
 
 class ServeEngine:
@@ -119,9 +199,11 @@ class ServeEngine:
     graph and the weights), so a dropped engine and its cache are freed at
     once, without a garbage collection.
 
-    ``plan_accuracy`` (the predicted-against-measured peak of the serving
-    plan) is left out of :meth:`metrics`: it comes with the observability
-    slice (ROADMAP queue A item 9).
+    With ``obs`` (the default) and a compiled wave on the card, the first
+    wave the engine runs after each compile is also its device measurement
+    (:meth:`plan_accuracy`): the allocator's peak over that one wave, the
+    cache and weights already allocated, the process's high-water mark
+    reset just before it.
     """
 
     def __init__(
@@ -140,15 +222,19 @@ class ServeEngine:
         cache_max_entries: Optional[int] = None,
         greedy: bool = True,
         seed: int = 0,
-        obs: bool = False,
+        obs: bool = True,
         mesh=None,
         device="cuda",
     ):
         from ..core import ShapeBucketer
         from ..core.plan import PlanCache, as_plan_cache
 
-        _refuse_unported(autotune, mesh, obs)
+        _refuse_unported(autotune, mesh)
         M._check_decode_family(cfg)
+        self._obs = _EngineObs(obs)
+        # (baseline, peak) allocator bytes around the current wave's first
+        # run on the card; None until then, and on the CPU
+        self._dev_peak = None
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params.to(self.device)
@@ -208,6 +294,7 @@ class ServeEngine:
         if cached is not None:
             # warm bucket: zero traces, zero searches
             self._decode_wave, self.autochunk_result = cached
+            self._dev_peak = None
             self.exec_stats["wave_reuses"] += 1
             if self.canonical_bucket_exec:
                 stats.bump("bucket_exec_hits")
@@ -241,13 +328,17 @@ class ServeEngine:
             # the cache specs are already at the bucket boundary: this is
             # the bucket's compile
             weights = dict(self.params.named_parameters())
-            compiled = self._chunked_fn.compile(weights, *specs)
-            self.autochunk_result = compiled.result
+            with self._obs.span("serve.compile", exec_len=self.exec_len):
+                compiled = self._chunked_fn.compile(weights, *specs)
+            self.autochunk_result = res = compiled.result
+            if res.accuracy is not None and res.cache_key and self.plan_cache is not None:
+                self.plan_cache.record_accuracy(res.cache_key, res.accuracy)
 
             def wave(cache, toks, pos, _fn=compiled.fn, _w=weights):
                 return _fn(_w, cache, toks, pos)
 
         self._decode_wave = wave
+        self._dev_peak = None
         self.exec_stats["wave_compiles"] += 1
         self._wave_cache[wave_key] = (self._decode_wave, self.autochunk_result)
         self._record_telemetry(hit=False)
@@ -300,12 +391,16 @@ class ServeEngine:
             if not self.waiting:
                 break
             req = self.waiting.pop(0)
+            self._obs.record_admit(req, time.perf_counter())
             toks = torch.tensor([req.prompt], dtype=torch.int64, device=self.device)
-            logits, cache1 = M.prefill(self.cfg, self.params, {"tokens": toks}, self.exec_len)
+            with self._obs.span("serve.prefill_chunk", rid=req.rid, tokens=len(req.prompt)):
+                logits, cache1 = M.prefill(self.cfg, self.params, {"tokens": toks},
+                                           self.exec_len)
             # the request's cache into its slot: row `slot` of every leaf
             M.write_cache_row(self.cache, slot, cache1)
             req.generated.append(_sample(logits[0, -1:], self.greedy, self.generator)[0])
             req.first_token_at = time.perf_counter()
+            self._obs.record_first_token(req)
             self.slot_req[slot] = req
             self.slot_pos[slot] = len(req.prompt)
 
@@ -325,14 +420,34 @@ class ServeEngine:
     @torch.no_grad()
     def step(self) -> int:
         """Admit -> decode one wave -> retire; returns the rows decoded."""
-        self._admit()
+        if not self._obs.enabled:
+            return self._step_inner()
+        t0 = time.perf_counter()
+        with self._obs.span("serve.step"):
+            rows = self._step_inner()
+        if rows:
+            self._obs.record_step(time.perf_counter() - t0, rows)
+            if self.plan_cache is not None:
+                seen = self.plan_cache.hits + self.plan_cache.misses
+                if seen:
+                    self._obs.cache_hit_ratio.set(self.plan_cache.hits / seen)
+        return rows
+
+    def _step_inner(self) -> int:
+        with self._obs.span("serve.admit"):
+            self._admit()
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         if not active:
             return 0
         toks = torch.tensor([r.generated[-1] if r is not None else 0 for r in self.slot_req],
                             dtype=torch.int64, device=self.device)
         pos = torch.tensor(self.slot_pos, dtype=torch.int64, device=self.device)
-        logits = self._decode_wave(self.cache, toks, pos)
+        with self._obs.span("serve.decode_wave", rows=len(active)):
+            if self._dev_peak is None and self.autochunk_result is not None:
+                logits, self._dev_peak = self._obs.peak_run(
+                    self.device, self._decode_wave, self.cache, toks, pos)
+            else:
+                logits = self._decode_wave(self.cache, toks, pos)
         self.n_decode_steps += 1
         nxt = _sample(logits, self.greedy, self.generator)
         for i in active:
@@ -371,7 +486,28 @@ class ServeEngine:
             res = self.autochunk_result
             if res is not None and res.cache_key:
                 out["plan_telemetry"] = self.plan_cache.entry_meta(res.cache_key)
+        acc = self.plan_accuracy()
+        if acc is not None:
+            out["plan_accuracy"] = acc.to_dict()
         return out
+
+    def plan_accuracy(self) -> Optional[obs_accuracy.PlanAccuracy]:
+        """Predicted-against-measured activation peak of the compiled wave
+        (None for the plain wave).
+
+        The interpret record comes from the compile (the search's predicted
+        peak against the emitted graph's watermark).  On the card, once the
+        wave has run, the measurement is upgraded to the allocator's peak
+        over its first run, and the upgraded record goes into the plan
+        cache's telemetry.
+        """
+        res = self.autochunk_result
+        if res is None or res.accuracy is None:
+            return None
+        acc = obs_accuracy.with_device_measurement(res.accuracy, *(self._dev_peak or (None, None)))
+        if acc is not res.accuracy and self.plan_cache is not None and res.cache_key:
+            self.plan_cache.record_accuracy(res.cache_key, acc)
+        return acc
 
 
 def _plain_wave(cfg: ModelConfig, params: Model):
@@ -402,7 +538,12 @@ class _SeqState:
 
 
 class PagedServeEngine:
-    """Continuous batching over a paged KV pool, causal dense/GQA decoders."""
+    """Continuous batching over a paged KV pool, causal dense/GQA decoders.
+
+    With ``obs`` (the default) on the card, the first step that carries
+    prefill rows is also the device measurement of :meth:`plan_accuracy`:
+    the allocator's peak over that step's ragged batch.
+    """
 
     def __init__(
         self,
@@ -420,7 +561,7 @@ class PagedServeEngine:
         spill_pages: int = 0,
         greedy: bool = True,
         seed: int = 0,
-        obs: bool = False,
+        obs: bool = True,
         mesh=None,
         device="cuda",
     ):
@@ -428,7 +569,7 @@ class PagedServeEngine:
         from .kv_pool import KVPool
         from .prefix_cache import PrefixCache
 
-        _refuse_unported(autotune, mesh, obs)
+        _refuse_unported(autotune, mesh)
         if spill_pages and not prefix_cache:
             raise ValueError("spill_pages requires prefix_cache=True")
         if cfg.family not in ("dense", "vlm") or cfg.mla or not cfg.causal:
@@ -454,6 +595,11 @@ class PagedServeEngine:
         self.greedy = greedy
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.autochunk_budget = autochunk_budget
+        self._obs = _EngineObs(obs)
+        self._accuracy: Optional[obs_accuracy.PlanAccuracy] = None
+        # (baseline, peak) allocator bytes around the first prefill step on
+        # the card; None until then, and on the CPU
+        self._dev_peak = None
 
         if num_pages is None:
             # every row of the step batch can hold a max_len sequence
@@ -596,6 +742,7 @@ class PagedServeEngine:
                 self.sched_stats["prefix_tokens_reused"] += matched
             self._next_seq_id += 1
             self.waiting.pop(0)
+            self._obs.record_admit(req, time.perf_counter())
             # matched tokens are already in the pool: prefill resumes at the
             # divergence point
             self.running.append(_SeqState(req=req, seq_id=sid, prefilled=matched,
@@ -621,7 +768,23 @@ class PagedServeEngine:
     # ------------------------------------------------------------------
     def step(self):
         """Admit -> one mixed ragged step -> sample -> retire."""
-        self._admit()
+        if not self._obs.enabled:
+            return self._step_inner()
+        t0 = time.perf_counter()
+        decoded0 = self.sched_stats["decode_tokens"]
+        stepped0 = self.sched_stats["steps"]
+        with self._obs.span("serve.step"):
+            self._step_inner()
+        if self.sched_stats["steps"] > stepped0:
+            self._obs.record_step(time.perf_counter() - t0,
+                                  self.sched_stats["decode_tokens"] - decoded0)
+            self._obs.pages_in_use.set(self.pool.pages_in_use)
+            if self.prefix_cache is not None and self._next_seq_id:
+                self._obs.cache_hit_ratio.set(self.sched_stats["prefix_hits"] / self._next_seq_id)
+
+    def _step_inner(self):
+        with self._obs.span("serve.admit"):
+            self._admit()
         if not self.running:
             return
 
@@ -660,12 +823,17 @@ class PagedServeEngine:
             self.pool.ensure(st.seq_id, st.kv_len + take)
         page_table = self.pool.table_array(seq_ids, self.max_pages_per_seq)
 
-        logits = self.run_ragged(
-            torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(q_lens).to(self.device),
-            torch.from_numpy(kv_lens).to(self.device),
-            page_table,
-        )
+        batch = (torch.from_numpy(tokens).to(self.device),
+                 torch.from_numpy(q_lens).to(self.device),
+                 torch.from_numpy(kv_lens).to(self.device), page_table)
+        batch_span = "serve.prefill_chunk" if n_prefill_rows else "serve.decode_wave"
+        with self._obs.span(batch_span, prefill_rows=n_prefill_rows,
+                            decode_rows=n_decode_rows, q_max=q_max):
+            if n_prefill_rows and self._dev_peak is None and self.prefill_plan is not None:
+                logits, self._dev_peak = self._obs.peak_run(self.device, self.run_ragged,
+                                                            *batch)
+            else:
+                logits = self.run_ragged(*batch)
 
         # sample one token for every row that finished its context work
         need_rows = []
@@ -696,6 +864,7 @@ class PagedServeEngine:
                     stats.bump("prefill_chunks")
                     self.sched_stats["prefill_chunks"] += 1
                     st.req.first_token_at = now
+                    self._obs.record_first_token(st.req)
                 else:
                     self.sched_stats["decode_tokens"] += 1
 
@@ -744,4 +913,33 @@ class PagedServeEngine:
                 "peak_bytes": self.prefill_plan.peak_bytes,
                 "fits": self.prefill_plan.fits,
             }
+        acc = self.plan_accuracy()
+        if acc is not None:
+            out["plan_accuracy"] = acc.to_dict()
         return out
+
+    def plan_accuracy(self) -> Optional[obs_accuracy.PlanAccuracy]:
+        """Predicted-against-measured peak of the prefill-chunk plan.
+
+        *Predicted* is the planner's estimate for the chosen chunk: one
+        block step against a ``max_len`` context.  *Measured* (interpret) is
+        the watermark of the same block step traced at the shapes the
+        engine executes, the context rounded up to whole pool pages.  On
+        the card, once a step with prefill rows has run, the measurement is
+        the allocator's peak over that step's whole ragged batch: every
+        layer, ``max_seqs`` rows padded to the chunk, and the logits, where
+        the planner models one row's block.
+        """
+        if self.prefill_plan is None:
+            return None
+        if self._accuracy is None:
+            from ..core.estimation import _prefill_step_graph
+
+            kv_exec = self.max_pages_per_seq * self.page_size
+            g = _prefill_step_graph(self.cfg, self.prefill_chunk, kv_exec)
+            self._accuracy = obs_accuracy.publish(obs_accuracy.compare(
+                self.prefill_plan.peak_bytes, obs_accuracy.watermark_graph(g), "interpret",
+                chunk=self.prefill_chunk, kv_exec_len=kv_exec,
+                budget_bytes=self.prefill_plan.budget_bytes))
+        return obs_accuracy.with_device_measurement(self._accuracy,
+                                                    *(self._dev_peak or (None, None)))

@@ -31,6 +31,7 @@ import torch
 from ..core import stats
 from ..device import resolve_device
 from ..kernels.paged_attention import interleave_kv
+from ..obs.tracing import span
 
 
 class OutOfPagesError(RuntimeError):
@@ -276,7 +277,8 @@ class KVPool:
         slot = self._host_free.pop()
         # pages[:, page] strides over the layers: the copy gathers the page
         # at every layer into the slot's contiguous block
-        self._host[slot].copy_(self.pages[:, page])
+        with span("serve.spill", page=page, slot=slot):
+            self._host[slot].copy_(self.pages[:, page])
         self.decref(page)
         self.spill_events += 1
         stats.bump("pages_spilled")
@@ -295,7 +297,8 @@ class KVPool:
             raise OutOfPagesError(f"restoring spilled host slot {slot}", need=1, free=0,
                                   in_use=self.pages_in_use, num_pages=self.num_pages)
         page = self._free.pop()
-        self.pages[:, page].copy_(self._host[slot])
+        with span("serve.restore", page=page, slot=slot):
+            self.pages[:, page].copy_(self._host[slot])
         self._ref[page] = 1
         self._host_free.append(slot)
         self.alloc_events += 1

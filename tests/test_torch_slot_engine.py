@@ -30,6 +30,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import stats
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import model as M
+from repro_torch.obs.tracing import TRACER
 from repro_torch.serving import Request, ServeEngine
 
 torch.set_num_threads(2)
@@ -327,9 +328,21 @@ def test_engine_refusals_name_their_item(kw, item):
     are served now: qwen2-moe (MoE) and deepseek-v3 (MoE with MLA, its
     latent ring) build and serve (tests/test_torch_moe_decode.py and
     tests/test_torch_mla_decode.py hold their tokens against the JAX
-    engine's)."""
+    engine's).  Item 9 (observability) is in: ``obs=True`` builds an
+    engine that serves and records a ``serve.step`` span a step
+    (tests/test_torch_obs.py holds its telemetry against the JAX engine's)."""
     kw = dict(kw)
     cfg = get_config(kw.pop("arch", "gpt-paper")).reduced()
+    if kw.get("obs"):
+        TRACER.clear()
+        cfg = cfg.with_(dtype="float32")
+        eng = ServeEngine(cfg, M.init_params(cfg, 0, device="cpu"), max_batch=1, max_len=16,
+                          device="cpu", **kw)
+        eng.submit(Request(rid=0, prompt=[1, 2, 3], max_new_tokens=3))
+        (req,) = eng.run()
+        assert req.done and len(req.generated) == 3
+        assert len(TRACER.spans("serve.step")) == eng.n_decode_steps == 2
+        return
     if cfg.family == "moe":
         cfg = cfg.with_(dtype="float32")
         eng = ServeEngine(cfg, M.init_params(cfg, 0, device="cpu"), max_batch=1, max_len=16,
