@@ -10,7 +10,7 @@ registers, shared memory and spills (``-Xptxas -v``) and, from
 (``[route]`` lines; the bf16 attention kernel, computed and masked, and
 the bf16 FFN kernel must have HGMMA, the bf16 SSD kernel HMMA or HGMMA,
 their f32 kernels, the mask's tile pre-pass and the RG-LRU kernels none),
-and drives the port's paths, four at
+and drives the port's paths, five at
 gpt-paper's full width, one at minitron-4b's, four at phi3-mini-3.8b's,
 two at mamba2-1.3b's, three at recurrentgemma-9b's, two at
 qwen2-moe-a2.7b's and one at deepseek-v3-671b's:
@@ -182,7 +182,21 @@ qwen2-moe-a2.7b's and one at deepseek-v3-671b's:
   and per block against a float32 forward of the same weights (widened
   layer by layer as it runs; per block no further than 1.5 times
   unbudgeted), the MTP head once; float32 at one dense and one MoE layer,
-  per block within 1e-3 of unbudgeted (aux within 1e-6).
+  per block within 1e-3 of unbudgeted (aux within 1e-6);
+* training (``[train]``): gpt-paper at full width and depth in bf16,
+  trained 30 steps on the synthetic stream (batch 8 x 1024, remat, AdamW
+  with float32 moments, lr 1e-3 after 2 warm-up steps): per step the loss,
+  ce, lr, CUDA-event ms, tok/s and ``max_memory_allocated``, a finite loss
+  that falls by at least 0.5; the trained model's checkpoint reloaded
+  bit-equal; ``computed_attention`` and ``chunked_ffn`` refusing an input
+  that requires grad, and a ``kernel_dispatch='on'`` compile with trainable
+  weights refused; one S 8192 step unbudgeted and one per block at budget
+  0.2 (the plan, its predicted forward peak, each step's peak and time);
+  float32 gradients at 4 layers, S 2048, through a budget-0.2 block plan
+  within 1e-4 of each leaf's largest unbudgeted gradient, and that block's
+  inference plan compiled beside it under its own key; the train CLI as a
+  subprocess.  No training step launches a kernel: a compile that needs
+  gradients dispatches none (the counts are read and must be 0).
 
 Before the SSM and hybrid paths, both scans are held against their plain
 versions (mamba2's shape, a length the chunk does not divide, the reduced
@@ -5034,6 +5048,294 @@ def mla_serve_cli(torch):
     return lines
 
 
+# ---------------------------------------------------------------------------
+# [train]: gpt-paper trained at full width, gradients through the plan
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(arch="gpt-paper", seed=21, batch=8, seq=1024, steps=30, lr=1e-3, warmup=2,
+             min_drop=0.5,
+             # float32 gradients through the plan: full width, 4 layers
+             grad_layers=4, grad_seq=2048, grad_budget=0.2, grad_rtol=1e-4,
+             # one long step, bf16 at full depth, unbudgeted and per block
+             long_seq=8192, long_budget=0.2,
+             cli=["--arch", "gpt-paper", "--steps", "3", "--batch", "4", "--seq", "1024"],
+             cli_timeout=300)
+
+
+def kernel_counters(CA, CF, PA, SS, RS):
+    return {"computed_attention": CA.computed_attention, "masked_attention": CA.masked_attention,
+            "chunked_ffn": CF.chunked_ffn, "paged_attention": PA.paged_attention_blocked,
+            "ssd_scan": SS.ssd_scan, "rglru_scan": RS.rglru_scan}
+
+
+def zero_launches(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_launches(counters):
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def timed_step(torch, step_fn, model, opt, batch):
+    """One train step between CUDA events, the peak reset just before it:
+    (model, opt, metrics, ms, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    model, opt, met = step_fn(model, opt, batch)
+    e1.record()
+    torch.cuda.synchronize()
+    return model, opt, met, e0.elapsed_time(e1), torch.cuda.max_memory_allocated()
+
+
+def block_cf(M, cfg):
+    """The model's ``ChunkedFunction`` of its dense block under ``cfg``."""
+    (cf,) = [v for k, v in M._AC_CACHE.items() if k[3] == cfg]
+    return cf
+
+
+def train_grads(torch, loss_fn, cfg, model, batch):
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = loss_fn(cfg, model, batch, remat=True)
+    loss.backward()
+    out = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return float(loss.detach()), out
+
+
+def run_train_phase(torch, CA, CF, PA, SS, RS, stats, M, card):
+    """``[train]``: gpt-paper trained at full width and depth in bf16 (30
+    steps of the synthetic stream, remat, float32 moments), its float32
+    gradients at 4 layers through a budget-0.2 block plan against the
+    unbudgeted ones, one S 8192 step unbudgeted and per block, the kernel
+    wrappers' and the compiler's refusals, the checkpoint round trip and
+    the train CLI.  No kernel is launched by a training step: a compile that
+    needs gradients dispatches none."""
+    from repro_torch.checkpointing import load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core import ChunkConfig, autochunk
+    from repro_torch.data import make_batch, synthetic_stream
+    from repro_torch.optim import adamw_init, linear_warmup_cosine
+    from repro_torch.training import loss_fn, make_train_step
+
+    t_phase = time.perf_counter()
+    counters = kernel_counters(CA, CF, PA, SS, RS)
+    out = {}
+    T = TRAIN
+    B, S = T["batch"], T["seq"]
+
+    # ---- gpt-paper, full width and depth, bf16 --------------------------
+    cfg = get_config(T["arch"])
+    check(cfg.dtype == "bfloat16" and cfg.tie_embeddings, "gpt-paper is bf16 with tied embeddings")
+    model = M.init_params(cfg, T["seed"], device="cuda").requires_grad_()
+    n_params = sum(p.numel() for p in model.parameters())
+    step_fn = make_train_step(cfg, linear_warmup_cosine(T["lr"], T["warmup"], T["steps"]))
+    opt = adamw_init(dict(model.named_parameters()), moment_dtype="float32")
+    data = synthetic_stream(cfg, B, S, seed=T["seed"], device="cuda")
+    print(f"[train] {cfg.name} L={cfg.n_layers} d={cfg.d_model} V={cfg.vocab_size} bf16,"
+          f" {n_params} params, f32 moments, batch {B} x {S}, remat, lr {T['lr']} warmup"
+          f" {T['warmup']}, {T['steps']} steps; {card}")
+    zero_launches(counters)
+    steps = []
+    for i in range(T["steps"]):
+        batch = next(data)
+        model, opt, met, ms, peak = timed_step(torch, step_fn, model, opt, batch)
+        m = {k: float(v) for k, v in met.items()}
+        check(math.isfinite(m["loss"]), f"[train] step {i}: loss {m['loss']}")
+        steps.append(dict(step=i, loss=m["loss"], ce=m["ce"], lr=m["lr"], ms=ms,
+                          tok_s=B * S / (ms / 1e3), peak=peak))
+        print(f"[train] step {i:2d}: loss {m['loss']:.4f} ce {m['ce']:.4f} lr {m['lr']:.3e}"
+              f" {ms:.2f} ms {B * S / (ms / 1e3):.0f} tok/s max_memory_allocated {peak} B")
+    launches = read_launches(counters)
+    drop = steps[0]["loss"] - steps[-1]["loss"]
+    med = statistics.median(s["ms"] for s in steps[1:])
+    print(f"[train] gpt-paper: loss {steps[0]['loss']:.4f} -> {steps[-1]['loss']:.4f} (drop"
+          f" {drop:.4f}, limit {T['min_drop']}); median step {med:.2f} ms"
+          f" ({B * S / (med / 1e3):.0f} tok/s); launches {launches}; {card}")
+    check(drop >= T["min_drop"], f"[train] the loss fell {drop:.4f} < {T['min_drop']}")
+    check(not any(launches.values()), f"[train] a training step launched a kernel: {launches}")
+    out["gpt_paper"] = dict(params=n_params, steps=steps, drop=drop, median_ms=med,
+                            launches=launches)
+    lap("train: gpt-paper 30 steps")
+
+    # ---- the checkpoint of the trained model ------------------------------
+    tmp = tempfile.mkdtemp(prefix="train_ck_")
+    try:
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "gpt-paper.npz")
+        save_checkpoint(path, model, step=T["steps"])
+        back, step = load_checkpoint(path, model)
+        seconds = time.perf_counter() - t0
+        named = dict(model.named_parameters())
+        equal = step == T["steps"] and all(
+            torch.equal(p.view(torch.int16), named[k].view(torch.int16))
+            for k, p in back.named_parameters())
+        size = os.path.getsize(path)
+        del back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[train] checkpoint: {size} B .npz saved and loaded in {seconds:.2f}s,"
+          f" bit-equal {equal}")
+    check(equal, "[train] the reloaded bf16 checkpoint differs from the trained model")
+    out["checkpoint"] = dict(bytes=size, seconds=seconds, bit_equal=equal)
+
+    # ---- refusals ---------------------------------------------------------
+    g = torch.Generator(device="cuda").manual_seed(T["seed"])
+    q, k, v = (torch.randn((12, 256, 64), generator=g, device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    x = torch.randn((256, 768), generator=g, device="cuda", dtype=torch.bfloat16)
+    wg, wu = (torch.randn((768, 2048), generator=g, device="cuda", dtype=torch.bfloat16) * 0.02
+              for _ in range(2))
+    wd = torch.randn((2048, 768), generator=g, device="cuda", dtype=torch.bfloat16) * 0.02
+    refusals = {}
+    zero_launches(counters)
+    for name, call in (
+            ("computed_attention", lambda: CA.computed_attention(
+                q.requires_grad_(True), k, v, scale=0.125)),
+            ("chunked_ffn", lambda: CF.chunked_ffn(x, wg.requires_grad_(True), wu, wd)),
+            ("kernel_dispatch='on'", lambda: autochunk(
+                lambda p, h: M.dense_block_full(cfg, p, h),
+                ChunkConfig(budget_ratio=0.2, kernel_dispatch="on", weight_argnums=(0,)))
+                .compile(M._index_tree(model["blocks"], 0),
+                         torch.zeros((1, 512, 768), device="cuda", dtype=torch.bfloat16)))):
+        try:
+            call()
+            refusals[name] = None
+        except NotImplementedError as e:
+            refusals[name] = str(e)
+        print(f"[train] refusal {name} with an input that requires grad:"
+              f" {'raised NotImplementedError: ' + refusals[name][:90] if refusals[name] else 'DID NOT RAISE'}")
+    with torch.no_grad():      # the same calls without gradients launch
+        ref_out = CA.computed_attention(q, k, v, scale=0.125)
+        check(torch.isfinite(ref_out.float()).all(), "computed_attention under no_grad")
+    check(all(refusals.values()), f"[train] a refusal did not raise: {refusals}")
+    check(read_launches(counters)["computed_attention"] == 1
+          and read_launches(counters)["chunked_ffn"] == 0,
+          f"[train] launches around the refusals: {read_launches(counters)}")
+    out["refusals"] = {k: bool(v) for k, v in refusals.items()}
+    del q, k, v, x, wg, wu, wd, ref_out
+
+    # ---- one long step, unbudgeted and per block --------------------------
+    long = {}
+    Sl = T["long_seq"]
+    lbatch = make_batch(cfg, 1, Sl, seed=T["seed"] + 1, device="cuda")
+    M._AC_CACHE.clear()
+    for label, run_cfg in (("unbudgeted", cfg),
+                           ("budget", cfg.with_(autochunk_budget=T["long_budget"]))):
+        fn = make_train_step(run_cfg, linear_warmup_cosine(T["lr"], T["warmup"], T["steps"]))
+        zero_launches(counters)
+        t0 = time.perf_counter()
+        model, opt, met, ms, peak = timed_step(torch, fn, model, opt, lbatch)
+        wall = time.perf_counter() - t0
+        check(math.isfinite(float(met["loss"])), f"[train] long step {label}: loss")
+        rec = dict(ms=ms, wall_s=wall, peak=peak, loss=float(met["loss"]))
+        if label == "budget":
+            cf = block_cf(M, run_cfg)
+            r = cf.autochunk_result
+            check(len(r.plan) >= 1, "[train] the S 8192 block plan has no stage")
+            # the first call compiled: time a second step on the warm plan
+            model, opt, met, ms2, peak2 = timed_step(torch, fn, model, opt, lbatch)
+            rec.update(stages=len(r.plan), warm_ms=ms2, warm_peak=peak2,
+                       predicted_forward_peak=r.final_peak, baseline_forward_peak=r.baseline_peak,
+                       loops=[(st.n_chunks, st.chunk_extent, st.n_loop_eqns) for st in r.plan],
+                       compile_s=r.elapsed_s)
+            print(f"[train] long S={Sl} block plan (grad compile, {r.elapsed_s:.2f} host s):"
+                  f" {len(r.plan)} stage(s) " + ", ".join(
+                      f"[n={st.n_chunks} extent {st.chunk_extent} loop nodes {st.n_loop_eqns}"
+                      f" peak {st.peak_before} -> {st.peak_after} B]" for st in r.plan)
+                  + f"; predicted forward block peak {r.baseline_peak} -> {r.final_peak} B")
+        launches = read_launches(counters)     # every step of this label
+        check(not any(launches.values()), f"[train] long step {label} launched {launches}")
+        rec["launches"] = launches
+        long[label] = rec
+        print(f"[train] long S={Sl} bf16 remat step {label}: {ms:.2f} ms (wall {wall:.2f}s"
+              + (f", warm {rec['warm_ms']:.2f} ms, peak {rec['warm_peak']} B" if label == "budget"
+                 else "") + f") max_memory_allocated {peak} B, loss {rec['loss']:.4f};"
+              f" launches {launches}; {card}")
+    out["long"] = long
+    del lbatch, opt, data, step_fn
+    model.requires_grad_(False)
+    del model
+    M._AC_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("train: checkpoint, refusals, long step")
+
+    # ---- float32 gradients through the plan (4 layers, S 2048) -----------
+    cfg32 = get_config(T["arch"]).with_(dtype="float32", n_layers=T["grad_layers"])
+    model32 = M.init_params(cfg32, T["seed"] + 2, device="cuda").requires_grad_()
+    gbatch = make_batch(cfg32, 1, T["grad_seq"], seed=T["seed"] + 3, device="cuda")
+    bcfg = cfg32.with_(autochunk_budget=T["grad_budget"])
+    zero_launches(counters)
+    before = stats.snapshot()
+    loss0, g0 = train_grads(torch, loss_fn, cfg32, model32, gbatch)
+    loss1, g1 = train_grads(torch, loss_fn, bcfg, model32, gbatch)
+    d = stats.delta(before)
+    launches = read_launches(counters)
+    cf = block_cf(M, bcfg)
+    r = cf.autochunk_result
+    worst = {}
+    for name, want in g0.items():
+        scale = float(want.abs().max())
+        err = float((g1[name] - want).abs().max())
+        worst[name] = err / scale if scale else err
+        print(f"[train] grad f32 {name}: max|g| {scale:.4e} max|delta| {err:.4e} ratio"
+              f" {worst[name]:.3e} (limit {T['grad_rtol']})")
+    print(f"[train] grad f32 L={cfg32.n_layers} S={T['grad_seq']} budget {T['grad_budget']}:"
+          f" loss {loss0:.6f} / {loss1:.6f}; plan {len(r.plan)} stage(s) "
+          + ", ".join(f"[n={st.n_chunks} extent {st.chunk_extent}]" for st in r.plan)
+          + f"; dispatch hits {d['kernel_dispatch_hits']}; launches {launches}; worst ratio"
+          f" {max(worst.values()):.3e}")
+    check(len(r.plan) >= 1, "[train] the float32 block plan has no stage")
+    check(max(worst.values()) <= T["grad_rtol"],
+          f"[train] float32 gradients through the plan: worst ratio {max(worst.values()):.3e}")
+    check(not any(launches.values()) and d["kernel_dispatch_hits"] == 0,
+          f"[train] a gradient step launched a kernel: {launches}")
+    # the same block's inference plan compiled beside it: its own key, kernels
+    with torch.no_grad():
+        p0 = M._index_tree(model32["blocks"], 0)
+        h0, _ = M.embed_inputs(cfg32, model32, gbatch)
+        before = stats.snapshot()
+        cf(p0, h0)
+        d_inf = stats.delta(before)
+    keys = [c.result.cache_key for c in cf._compiled.values()]
+    print(f"[train] plan keys: training {keys[0][:16]}, inference {keys[-1][:16]}"
+          f" ({len(set(keys))} distinct of {len(keys)}); the inference compile dispatched"
+          f" {d_inf['kernel_dispatch_hits']} site(s)")
+    check(len(keys) == 2 and len(set(keys)) == 2,
+          f"[train] the training and inference plans share a key: {keys}")
+    check(d_inf["kernel_dispatch_hits"] >= 1, "[train] the inference plan dispatched nothing")
+    out["grad_fp32"] = dict(layers=cfg32.n_layers, seq=T["grad_seq"], budget=T["grad_budget"],
+                            stages=len(r.plan), worst_ratio=max(worst.values()),
+                            worst=worst, launches=launches, keys_distinct=len(set(keys)))
+    del model32, g0, g1, gbatch, p0, h0
+    M._AC_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the train CLI as a subprocess ------------------------------------
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"] + T["cli"],
+                          env=env, capture_output=True, text=True, timeout=T["cli_timeout"])
+    cli_s = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    for ln in lines:
+        print(f"[train] CLI {' '.join(T['cli'])}: {ln}")
+    check(proc.returncode == 0, f"[train] the train CLI exited {proc.returncode}:"
+          f" {proc.stderr[-2000:]}")
+    check(any(ln.startswith("[train] done: loss ") for ln in lines),
+          "[train] the train CLI printed no '[train] done' line")
+    out["cli"] = dict(lines=lines, seconds=cli_s)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[train] phase done in {out['seconds']:.1f}s (CLI {cli_s:.1f}s)")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5490,6 +5792,12 @@ def main() -> int:
           " serving and the CLI)")
     lap("mla-serve, float32 and CLI")
 
+    # ---- 17h. training: gpt-paper at full width, gradients through the plan
+    # (counts zeroed just before each training run, read just after: a
+    # compile that needs gradients dispatches no kernel, so every count is 0)
+    train = run_train_phase(torch, CA, CF, PA, SS, RS, stats, M, card)
+    lap("train")
+
     # ---- 18. kernels lines and the result --------------------------------
     launch_counts = {"paged_attention": launches,
                      "computed_attention": fwd["auto"]["launches"],
@@ -5519,6 +5827,7 @@ def main() -> int:
                                      "moe_serve_launches": moe_serve_launches.get(k, 0),
                                      "mla_launches": mla_launches.get(k, 0),
                                      "mla_serve_launches": mla_serve_launches.get(k, 0),
+                                     "train_launches": train["gpt_paper"]["launches"][k],
                                      "max_err_bf16": errs[k]["bfloat16"],
                                      "max_err_fp32": errs[k]["float32"]}
                                     for k, n in launch_counts.items()]))
@@ -5556,6 +5865,7 @@ def main() -> int:
             "forward": dict(fwd[mode], fp32_logits_err=fp32_err[mode]),
         })
     entries[0]["obs"] = obs
+    entries[0]["train"] = train
     entries[0]["phi3_serve"] = phi3_serve
     entries[0]["prefix_serve"] = prefix_serve
     entries[1]["cache"] = cache_run

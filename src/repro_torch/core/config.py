@@ -172,9 +172,10 @@ class ChunkConfig:
             return self.budget_bytes
         return int(baseline_peak * self.budget_ratio)
 
-    def search_knobs(self) -> Dict[str, Any]:
+    def search_knobs(self, grad: bool = False) -> Dict[str, Any]:
         """The knobs that can change a search result, in the JAX package's
-        layout."""
+        layout (``kernel_dispatch`` resolved for a compile that needs
+        gradients when ``grad``)."""
         return {
             "max_stages": self.max_stages,
             "beam": self.beam,
@@ -183,15 +184,27 @@ class ChunkConfig:
             "allow_hoist": self.allow_hoist,
             "dim_blocklist": sorted(self.dim_blocklist),
             "anneal": self.anneal,
-            "kernel_dispatch": self.resolve_kernel_dispatch(),
+            "kernel_dispatch": self.resolve_kernel_dispatch(grad),
             "autotune": self.resolve_autotune(),
             "mask_mode": self.mask_mode,
             "mesh": None,
         }
 
-    def resolve_kernel_dispatch(self) -> bool:
+    def resolve_kernel_dispatch(self, grad: bool = False) -> bool:
         """Whether the kernel-dispatch pass runs: ``'auto'`` dispatches when
-        CUDA is available (the JAX package: when on a TPU)."""
+        CUDA is available (the JAX package: when on a TPU).
+
+        ``grad`` marks a compile whose call needs gradients.  No kernel of
+        either package has a backward, so there ``'auto'`` resolves off (as
+        the JAX package's does on every backend its training runs on) and
+        ``'on'`` raises."""
+        if grad:
+            if self.kernel_dispatch == "on":
+                raise NotImplementedError(
+                    "kernel_dispatch='on' in a compile that needs gradients: no kernel of"
+                    " either package has a backward (ROADMAP queue A item 12: training"
+                    " runs the generic chunk loops); use 'auto' or 'off'")
+            return False
         if self.kernel_dispatch == "on":
             return True
         if self.kernel_dispatch == "off":
@@ -229,12 +242,15 @@ class ChunkConfig:
         return cls(hyper=hyper or CostHyper(),
                    **{k: tuple(v) if isinstance(v, list) else v for k, v in d.items()})
 
-    def cache_token(self, device: Optional[str] = None) -> str:
+    def cache_token(self, device: Optional[str] = None, grad: bool = False) -> str:
         """Stable digest of everything that can change a search result
         (``kernel_dispatch`` and ``kernel_target`` at their resolved values,
-        the target for inputs on ``device``)."""
+        the target for inputs on ``device``, and whether the compile needs
+        gradients)."""
         d = self.to_dict()
-        d["kernel_dispatch"] = self.resolve_kernel_dispatch()
+        d["kernel_dispatch"] = self.resolve_kernel_dispatch(grad)
+        if grad:
+            d["grad"] = True
         d["kernel_target"] = self.resolve_kernel_target(device)
         d["autotune"] = self.resolve_autotune()
         blob = json.dumps(d, sort_keys=True, separators=(",", ":"))

@@ -168,6 +168,15 @@ def _leaf_key(x: torch.Tensor) -> Tuple[Tuple[int, ...], str, str]:
     return _leaf_sig(x) + (x.device.type,)
 
 
+def needs_grad(leaves: Sequence[torch.Tensor]) -> bool:
+    """Whether a call on ``leaves`` needs gradients: grad mode is on and a
+    floating input or weight requires grad.  Such a compile dispatches no
+    kernel (``ChunkConfig.resolve_kernel_dispatch``), so it never shares a
+    plan with an inference compile of the same shapes."""
+    return torch.is_grad_enabled() and any(
+        x.requires_grad and x.is_floating_point() for x in leaves)
+
+
 def _package_result(*, fn: Callable, out_spec_box: List[Any], plan: List[StageRecord],
                     plan_stages: List[PlanStage], baseline_peak: int, final_peak: int,
                     budget_bytes: int, io_bytes: int, weight_bytes: int, elapsed_s: float,
@@ -176,7 +185,6 @@ def _package_result(*, fn: Callable, out_spec_box: List[Any], plan: List[StageRe
     """Wrap a flat callable back into the original pytree signature."""
     flat_fn = fn
 
-    @torch.no_grad()
     def wrapped(*args):
         leaves = pytree.tree_leaves(tuple(args))
         return pytree.tree_unflatten(list(flat_fn(*leaves)), out_spec_box[0])
@@ -193,13 +201,13 @@ def _package_result(*, fn: Callable, out_spec_box: List[Any], plan: List[StageRe
 # ---------------------------------------------------------------------------
 
 def _search_loop(g: Graph, prof: MemoryProfile, budget_bytes: int, config: ChunkConfig,
-                 target: str):
+                 target: str, grad: bool):
     """Greedy staged search with beam verification (paper Alg. 1).
 
     Each accepted stage is a pure graph rewrite verified by re-estimating
     the rewritten graph; nothing is traced during the search.
     """
-    kd = config.resolve_kernel_dispatch()
+    kd = config.resolve_kernel_dispatch(grad)
     records: List[StageRecord] = []
     pstages: List[PlanStage] = []
     for stage in range(config.max_stages):
@@ -251,14 +259,14 @@ def _search_loop(g: Graph, prof: MemoryProfile, budget_bytes: int, config: Chunk
     return g, prof, records, pstages
 
 
-def _search_with_anneal(g0, prof0, budget_bytes, config, target):
+def _search_with_anneal(g0, prof0, budget_bytes, config, target, grad):
     """Search, then budget-anneal: a missed target retries the whole
     pipeline against a tighter internal budget and keeps whichever plan
     estimates lower."""
-    g, prof, records, pstages = _search_loop(g0, prof0, budget_bytes, config, target)
+    g, prof, records, pstages = _search_loop(g0, prof0, budget_bytes, config, target, grad)
     if prof.peak_bytes > budget_bytes and config.anneal > 0 and pstages:
         retry = _search_with_anneal(g0, prof0, max(budget_bytes // 2, 1),
-                                    config.with_(anneal=config.anneal - 1), target)
+                                    config.with_(anneal=config.anneal - 1), target, grad)
         if retry[1].peak_bytes < prof.peak_bytes:
             return retry
     return g, prof, records, pstages
@@ -277,7 +285,10 @@ class Traced:
 
     The example arguments may be real tensors or ``meta`` tensors; the
     function is traced on ``meta`` copies, so nothing runs and nothing is
-    allocated on the card.
+    allocated on the card.  The trace runs under ``torch.no_grad`` whatever
+    the caller's grad mode, so a training compile and an inference compile
+    see the same aten graph; ``grad`` (the arguments need gradients, see
+    :func:`needs_grad`) joins the plan's keys and turns kernel dispatch off.
     """
 
     def __init__(self, cf: "ChunkedFunction", example_args: Sequence[Any]):
@@ -296,8 +307,10 @@ class Traced:
             return tuple(out_leaves)
 
         self.flat_fn = flat_fn
+        self.grad: bool = needs_grad(self.flat_args)
+        config.resolve_kernel_dispatch(self.grad)   # 'on' with gradients raises here
         meta_args = [_to_meta(x) for x in self.flat_args]
-        with span("compile.trace", leaves=len(self.flat_args)):
+        with span("compile.trace", leaves=len(self.flat_args)), torch.no_grad():
             self.graph, _ = trace(flat_fn, meta_args, weight_argnums=())
         self.graph.weight_invars = {self.graph.invars[i] for i in self.weight_flat}
         with span("compile.estimate"):
@@ -321,10 +334,14 @@ class Traced:
         """Exact structural plan-cache key of this trace and config.  The
         search knobs carry the kernel target this trace resolved: a plan
         searched for the CPU's plain versions never replays for the card's
-        kernels, which refuse more sites."""
+        kernels, which refuse more sites; and whether the compile needs
+        gradients, so a training plan and an inference plan never share a
+        key."""
         if self._cache_key is None:
             config = self.cf.config
-            knobs = dict(config.search_knobs(), kernel_target=self.target)
+            knobs = dict(config.search_knobs(self.grad), kernel_target=self.target)
+            if self.grad:   # as in cache_token: inference keys stay as they were
+                knobs["grad"] = True
             self._cache_key = plan_cache_key(self.graph, self.budget_bytes, config.hyper, knobs)
         return self._cache_key
 
@@ -340,7 +357,7 @@ class Traced:
             "weights": list(self.weight_flat),
             "sig": [[list(bucketer.bucket_shape(shape)), dtype]
                     for shape, dtype in map(_leaf_sig, self.flat_args)],
-            "config": self.cf.config.cache_token(self.device),
+            "config": self.cf.config.cache_token(self.device, self.grad),
         }
         blob = json.dumps(doc, sort_keys=True, separators=(",", ":"))
         return hashlib.sha256(blob.encode()).hexdigest()
@@ -381,10 +398,10 @@ class Traced:
         t0 = time.perf_counter()
         with span("compile.search", budget_bytes=self.budget_bytes):
             lowered, prof, records, pstages = _search_with_anneal(
-                self.graph, self.profile, self.budget_bytes, config, self.target)
+                self.graph, self.profile, self.budget_bytes, config, self.target, self.grad)
         self.search_s = time.perf_counter() - t0
         if pstages:
-            if config.resolve_kernel_dispatch():
+            if config.resolve_kernel_dispatch(self.grad):
                 with span("compile.lower", stages=len(pstages)):
                     lowered = dispatch_graph(lowered, mask_mode=config.mask_mode,
                                              target=self.target)
@@ -418,7 +435,7 @@ class Traced:
             with span("compile.replay", stages=len(saved.stages), rescale=rescale):
                 fn, g, prof = build_fn_from_plan(
                     self.graph, saved, rescale=rescale, record=rec,
-                    kernel_dispatch=config.resolve_kernel_dispatch(),
+                    kernel_dispatch=config.resolve_kernel_dispatch(self.grad),
                     mask_mode=config.mask_mode, target=self.target)
         except PlanApplyError:
             stats.bump("plan_replay_failures")
@@ -517,9 +534,10 @@ class Planned:
 class CompiledFunction:
     """Stage 3 product: the chunked callable with its compilation report.
 
-    Calling it runs the emitted Python program eagerly (under
-    ``torch.no_grad``: gradients through the chunk loops wait for the
-    training slice)."""
+    Calling it runs the emitted Python program eagerly under the caller's
+    grad mode: the chunk loops are aten ops into ``torch.empty`` buffers
+    (``narrow(...).copy_()``), which autograd differentiates.  A compile
+    that needs gradients holds no kernel node (no kernel has a backward)."""
 
     def __init__(self, result: AutoChunkResult, *, bucket_hit: bool = False):
         self.result = result
@@ -599,7 +617,7 @@ class ChunkedFunction:
 
     def _shape_key(self, args) -> Any:
         leaves, spec = pytree.tree_flatten(tuple(args))
-        return (str(spec), tuple(_leaf_key(x) for x in leaves))
+        return (str(spec), tuple(_leaf_key(x) for x in leaves), needs_grad(leaves))
 
     def __call__(self, *args):
         self.counters["calls"] += 1
@@ -633,10 +651,10 @@ class ChunkedFunction:
         wset = frozenset(weight_flat)
         specs = [x if i in wset else
                  torch.empty(self.bucketer.canonical_shape(x.shape), dtype=x.dtype,
-                             device="meta")
+                             device="meta", requires_grad=x.requires_grad)
                  for i, x in enumerate(flat)]
-        key = (str(in_spec), tuple(_leaf_sig(c) + (x.device.type,)
-                                   for c, x in zip(specs, flat)))
+        key = ((str(in_spec), needs_grad(flat)),
+               tuple(_leaf_sig(c) + (x.device.type,) for c, x in zip(specs, flat)))
         needs_pad = any(c.shape != x.shape for c, x in zip(specs, flat))
         return key, pytree.tree_unflatten(specs, in_spec), needs_pad
 

@@ -19,9 +19,11 @@ from .models.model import Model
 
 
 def numpy_to_torch(a: np.ndarray, device) -> torch.Tensor:
-    """Copy one array onto ``device``; bfloat16 (ml_dtypes) goes by its bits."""
+    """Copy one array onto ``device``; bfloat16 goes by its bits: an
+    ml_dtypes ``bfloat16`` array, or the 2-byte void array that ``np.load``
+    gives for one saved without ml_dtypes."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V" and a.dtype.itemsize == 2):
         t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a.copy())

@@ -38,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, refuse_grad
 
 NEG_INF = -1e30
 BLOCK_Q = 64     # query rows per thread block of the CUDA kernel
@@ -224,6 +224,7 @@ def computed_attention(q, k, v, q_offset=None, *, scale: float, causal: bool = T
     if q.device.type == "cpu":
         return computed_attention_plain(q, k, v, q_offset, scale=scale, causal=causal,
                                         window=window, group=group)
+    refuse_grad("computed_attention", q, k, v)
     _cuda_ready(q, k, v)
     out = torch.empty_like(q)
     if out.numel() == 0 or Skv == 0:
@@ -247,6 +248,7 @@ def masked_attention(q, k, v, mask, *, scale: float, group: int = 1,
     _check(q, k, v, group, mask)
     if q.device.type == "cpu":
         return masked_attention_plain(q, k, v, mask, scale=scale, group=group)
+    refuse_grad("masked_attention", q, k, v)
     _cuda_ready(q, k, v, mask)
     Nq, Sq, hd = q.shape
     Skv = k.shape[1]

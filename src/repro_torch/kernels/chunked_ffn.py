@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, refuse_grad
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # f must be a multiple of the kernel's f tile and d of its 64-column step
@@ -128,6 +128,7 @@ def chunked_ffn(x, w_gate, w_up, w_down, *, block_s: int = 128, block_f: int = 5
     _check(x, w_gate, w_up, w_down)
     if x.device.type == "cpu":
         return chunked_ffn_plain(x, w_gate, w_up, w_down)
+    refuse_grad("chunked_ffn", x, w_gate, w_up, w_down)
     _cuda_ready(x, w_gate, w_up, w_down)
     S, d = x.shape
     out = torch.empty((S, d), dtype=x.dtype, device=x.device)

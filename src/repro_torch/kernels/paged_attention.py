@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, refuse_grad
 
 NEG_INF = -1e30
 
@@ -171,6 +171,7 @@ def paged_attention_blocked(q, kv_pages, page_table, q_lens, kv_lens, *,
                                              kv_lens, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_blocked: no kernel for device {q.device}")
+    refuse_grad("paged_attention_blocked", q, kv_pages)
     S, q_max, H, hd = q.shape
     why = cuda_refusal(hd)
     if why is not None:

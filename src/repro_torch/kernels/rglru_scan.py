@@ -24,7 +24,7 @@ import functools
 
 import torch
 
-from . import OP_FLOPS, build
+from . import OP_FLOPS, build, refuse_grad
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -105,6 +105,8 @@ def rglru_scan(a, b, *, chunk: int = 256):
     sized the Mosaic blocks on the TPU and does not change the result.
     """
     del chunk
+    if a.device.type == "cuda":
+        refuse_grad("rglru_scan", a, b)
     return _rglru_scan_op(a, b)
 
 

@@ -32,7 +32,7 @@ from typing import Tuple
 
 import torch
 
-from . import OP_FLOPS, build
+from . import OP_FLOPS, build, refuse_grad
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the CUDA kernel holds one chunk in fixed tiles of these maxima (smaller
@@ -203,6 +203,8 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
     kernel reads them in place.  The chunk is ``min(chunk, s)``, as the JAX
     wrapper takes it.
     """
+    if x.device.type == "cuda":
+        refuse_grad("ssd_scan", x, dt, A, B, C)
     return _ssd_scan_op(x, dt, A, B, C, min(chunk, max(x.shape[1], 1)))
 
 

@@ -63,8 +63,9 @@ def main(argv=None) -> int:
           f" (computed mask {d['kernel_dispatch_computed_mask']}),"
           f" misses {d['kernel_dispatch_misses']}")
 
-    y1 = compiled(params, batch)
-    y0 = fn(params, batch)
+    with torch.no_grad():     # inference: the forward follows the caller's grad mode
+        y1 = compiled(params, batch)
+        y0 = fn(params, batch)
     err = float((y1.float() - y0.float()).abs().max())
     finite = bool(torch.isfinite(y1[..., :cfg.vocab_size]).all())
     print(f"[quickstart] output max |delta| vs the unchunked forward: {err:.3e};"

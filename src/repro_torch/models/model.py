@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils import _pytree as pytree
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -35,9 +36,10 @@ FAMILIES = DENSE_FAMILIES + ("moe", "ssm", "hybrid")
 class ParamTree(nn.Module):
     """Nested dict/list of tensors as a module tree.
 
-    Dicts become submodules, lists ``nn.ModuleList``s, tensors frozen
-    parameters (the port serves; it does not train).  Indexing with
-    ``tree["key"]`` reads like the JAX pytree.
+    Dicts become submodules, lists ``nn.ModuleList``s, tensors parameters,
+    frozen so that serving builds no autograd graph: ``requires_grad_()``
+    makes them take gradients.  Indexing with ``tree["key"]`` reads like the JAX
+    pytree.
     """
 
     def __init__(self, tree: Mapping[str, Any]):
@@ -75,10 +77,10 @@ class Model(ParamTree):
             return blocks[i]
         return _index_tree(blocks, i)
 
-    def forward(self, tokens=None, *, window=None, **inputs):
+    def forward(self, tokens=None, *, window=None, remat=False, **inputs):
         """``inputs`` are the batch's other entries (``frames``, ``patches``)."""
         batch = {"tokens": tokens, **inputs} if tokens is not None else inputs
-        return forward(self.cfg, self, batch, window=window)
+        return forward(self.cfg, self, batch, window=window, remat=remat)
 
 
 def logits_fn(model: Model):
@@ -97,7 +99,8 @@ def logits_fn(model: Model):
 
 def _index_tree(tree: ParamTree, i: Optional[int] = None) -> Dict[str, Any]:
     """A module tree as a nested dict of its tensors (entry ``i`` of each,
-    for the stacked form)."""
+    for the stacked form).  Entries are views, so a layer's gradient
+    accumulates into the stacked parameter."""
     out: Dict[str, Any] = {}
     for name, p in tree.named_parameters(recurse=False):
         out[name] = p if i is None else p[i]
@@ -302,15 +305,25 @@ def _maybe_autochunk(cfg: ModelConfig, tag: str, fn):
     return _AC_CACHE[key]
 
 
-def _run_blocks(cfg: ModelConfig, params: Model, h, tag: str, block):
+def _remat(fn, remat: bool):
+    """``fn(p, x)``, or with ``remat`` the same under activation
+    checkpointing: the backward recomputes the block from its inputs (the
+    JAX package's ``jax.checkpoint``)."""
+    if not remat:
+        return fn
+    return lambda p, x: checkpoint(fn, p, x, use_reentrant=False)
+
+
+def _run_blocks(cfg: ModelConfig, params: Model, h, tag: str, block, remat: bool):
     """``h`` through ``block(p, x)`` at every layer; with
     ``cfg.autochunk_budget``, through the AutoChunk plan of one block,
     compiled at the first layer and replayed for the rest."""
     if not cfg.autochunk_budget:
+        block = _remat(block, remat)
         for i in range(cfg.n_layers):
             h = block(params.layer_params(i), h)
         return h
-    fn = _maybe_autochunk(cfg, tag, block)
+    fn = _remat(_maybe_autochunk(cfg, tag, block), remat)
     blocks = params["blocks"]
     stacked = not isinstance(blocks, nn.ModuleList)
     for i in range(cfg.n_layers):
@@ -319,12 +332,14 @@ def _run_blocks(cfg: ModelConfig, params: Model, h, tag: str, block):
     return h
 
 
-@torch.no_grad()
-def forward(cfg: ModelConfig, params: Model, batch, *, window: Optional[int] = None):
+def forward(cfg: ModelConfig, params: Model, batch, *, window: Optional[int] = None,
+            remat: bool = False):
     """Full-sequence forward of the dense, MoE, SSM and hybrid families
     (MoE with MLA attention too, as deepseek-v3 has it).  Returns (logits,
     aux_loss): the MoE routers' load-balance loss summed over the MoE
-    layers, 0 for the other families.
+    layers, 0 for the other families.  It follows the caller's grad mode:
+    with trainable parameters (``model.requires_grad_()``) it builds the graph
+    a backward needs; ``remat`` checkpoints each block, chunked or not.
 
     With ``cfg.autochunk_budget`` each block runs the AutoChunk plan of one
     block, compiled at the first layer of its kind and replayed for the
@@ -345,9 +360,10 @@ def forward(cfg: ModelConfig, params: Model, batch, *, window: Optional[int] = N
     if fam in DENSE_FAMILIES:
         h = _run_blocks(cfg, params, h, f"dense{window}",
                         lambda p, x: dense_block_full(cfg, p, x, window=window,
-                                                      causal=cfg.causal))
+                                                      causal=cfg.causal), remat)
     elif fam == "ssm":
-        h = _run_blocks(cfg, params, h, "ssm", lambda p, x: ssm_block_full(cfg, p, x))
+        h = _run_blocks(cfg, params, h, "ssm", lambda p, x: ssm_block_full(cfg, p, x),
+                        remat)
     elif fam == "moe":
         dense = lambda p, x: dense_block_full(cfg, p, x, window=window)
         moe = lambda p, x: moe_block_full(cfg, p, x, window=window)
@@ -355,6 +371,7 @@ def forward(cfg: ModelConfig, params: Model, batch, *, window: Optional[int] = N
             if cfg.first_k_dense:
                 dense = _maybe_autochunk(cfg, f"densepre{window}", dense)
             moe = _maybe_autochunk(cfg, f"moe{window}", moe)
+        dense, moe = _remat(dense, remat), _remat(moe, remat)
         for i in range(cfg.n_layers):
             p = params.layer_params(i)
             if cfg.autochunk_budget and isinstance(p, nn.Module):
@@ -369,19 +386,17 @@ def forward(cfg: ModelConfig, params: Model, batch, *, window: Optional[int] = N
                   "hyb_rg": lambda p, x: rg_block_full(cfg, p, x)}
         for i in range(cfg.n_layers):
             tag = "hyb_attn" if cfg.is_attention_layer(i) else "hyb_rg"
-            p = params.layer_params(i)
+            p, fn = params.layer_params(i), blocks[tag]
             if cfg.autochunk_budget:
                 # each kind compiled at its first layer, as in the JAX package;
                 # the compiler takes a nested dict of tensors, not a module
-                h = _maybe_autochunk(cfg, tag, blocks[tag])(_index_tree(p), h)
-            else:
-                h = blocks[tag](p, h)
+                p, fn = _index_tree(p), _maybe_autochunk(cfg, tag, fn)
+            h = _remat(fn, remat)(p, h)
     h = L.apply_norm(cfg, h, params["final_norm"])
     logits = L.unembed(cfg, params["embed"], h)
     return logits, aux
 
 
-@torch.no_grad()
 def mtp_logits(cfg: ModelConfig, params, batch, h_final):
     """DeepSeek-V3 MTP head: predict token t+2 from (h_t, emb_{t+1}).
     ``h_final`` (B,S,d); returns (B,S-1,V)."""

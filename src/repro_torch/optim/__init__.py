@@ -1,0 +1,11 @@
+"""AdamW and learning-rate schedules (a port of ``repro/optim``)."""
+from .adamw import AdamWState, adamw_init, adamw_update
+from .schedules import cosine_schedule, linear_warmup_cosine
+
+__all__ = [
+    "AdamWState",
+    "adamw_init",
+    "adamw_update",
+    "cosine_schedule",
+    "linear_warmup_cosine",
+]
